@@ -1,4 +1,4 @@
-"""Smoke run of hisparse_tpu_torch's main path on one NVIDIA GPU.
+"""Smoke run of hisparse_tpu_torch's paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -7,23 +7,54 @@ Phases, in order; any failure raises and exits non-zero:
   1. require a CUDA device; print the card's name and power limit as
      ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
      gives them;
-  2. build the wavepack SpMV kernel (nvcc, sm_90a) and the native packer
-     (g++) from the sources in this checkout; print the build seconds;
+  2. build the three CUDA kernels (nvcc, sm_90a, one process for each of
+     the two sources, in parallel; SpMV and SpMM share one kernel body)
+     and the native packer (g++) from the sources in this checkout; print
+     the build seconds;
   3. on the fp32 parity families of the JAX package's chip sweep (plus one
-     two-block pack), hold the kernel against its plain PyTorch version on
-     the same CUDA operands (max|dy|/max|y| <= 1e-6) and both against the
-     f64 golden (<= 1e-4);
-  4. the main path at full size: the googleplus stand-in of the suite,
+     two-block pack), hold the SpMV kernel against its plain PyTorch
+     version on the same CUDA operands (max|dy|/max|y| <= 1e-6) and both
+     against the f64 golden (<= 1e-4);
+  4. serving at full size: the googleplus stand-in of the suite,
      powerlaw_csr(108000, 108000, 127, 1.2, seed=11), packed natively at
      its tuned design point, through SpmvOperator(wp, device="cuda") to
-     natural-order y; y within 1e-4 of spmv_f64, and the kernel's launch
-     counter, zeroed just before, above 0.  Then the kernel, its plain
-     version, the whole forward and a cuSPARSE CSR SpMV
-     (torch.sparse_csr_tensor @ x, a yardstick only) are timed on CUDA
-     events and printed with GOPS = 2*nnz/t and GB/s = bytes/t.
+     natural-order y; y within 1e-4 of spmv_f64, and the SpMV kernel's
+     launch counter, zeroed just before, above 0.  Then the kernel (with
+     and without its host enqueue), its plain version, the whole forward
+     and a cuSPARSE CSR SpMV (torch.sparse_csr_tensor @ x, a yardstick
+     only) are timed on CUDA events and printed with GOPS = 2*nnz/t and
+     GB/s = bytes/t;
+  5. on the same families, the gradient-stream kernel against its plain
+     version (max|d| <= 1e-6 of max|out|) and the SpMM kernel against its
+     plain version at F = 1, 5 and 16 (max|d|/max|Y| <= 1e-6);
+  6. training at full size: the transformer-70 stand-in of the suite's
+     training row (bench.py, diffspmv_tracking_row), uniform_sparse_csr(
+     512, 33288, 9986, seed=70), at that row's configs: StreamDiffSpmv
+     takes 5 SGD steps on 0.5*|A x - y_t|^2.  Step 1's y and x_bar within
+     1e-4 of float64 scipy on the stream's values, dA equal to
+     g[rows]*x[cols] on the card bit for bit, the two layouts' values
+     bit-equal after every step, the loss falling, the SpMV and
+     gradient-stream counters above 0, and one DiffSpmv forward + backward
+     within 1e-6 of the stream path.  Then one gradient step through the
+     kernels against the same step through the plain versions on the same
+     streams: y and x_bar (the SpMV kernel on the A and A^T packs) within
+     1e-6, both gradient streams bit for bit.  The forward, a whole
+     gradient step and the same step through the plain versions are
+     timed, and the forward and the step profiled;
+  7. GCN at full size: two layers, hidden width 16 (Kipf & Welling), on
+     the googleplus stand-in, 64 input features and 8 classes from numpy
+     seeds, the adjacency packed at phase 4's design point: logits within
+     1e-4 of a float64 scipy oracle, the cross-entropy falling over 3 SGD
+     steps, the SpMM counter above 0; the SpMM kernel against its plain
+     version on A-hat and A-hat^T at F = 8 and 16 (1e-6); one training
+     step is timed and profiled, the SpMM kernel timed at F = 16.
 
-The line before the last is a JSON object with the kernel's record; the
-last is ``{"ok": true, "device": {...}}``.
+The three kernels' times keep the host's enqueue out
+(``device_time_ms(queued=True)``); the forwards, steps and plain versions
+are timed with it, as their callers wait for it.  A profile
+(``utils/bench.profile_breakdown``) prints a call's device time by op and
+its device idle share.  The line before the last is a JSON object with
+the kernels' records; the last is ``{"ok": true, "device": {...}}``.
 """
 import json
 import subprocess
@@ -37,6 +68,13 @@ GOOGLEPLUS_CFG = dict(sublanes=512, bank_blocks=8, stripes=512,
                       block_major=True, classes_per_group=2,
                       steal_mantissa=True, idx16=True, two_choice=False)
 GOOGLEPLUS_PACK = dict(split_max=64, col_order="degree", bm_win=1, bm_adv=1)
+# bench.py:819-824
+T70 = dict(shape=(512, 33288, int(33288 * 0.30)), seed=70)
+T70_CFG = dict(sublanes=512, bank_blocks=1, stripes=4, steal_mantissa=True,
+               idx16=True, two_choice=False)
+T70_CFG_T = dict(T70_CFG, stripes=512)
+T70_STEPS, T70_LR = 5, 5e-5
+GCN_DIMS, GCN_STEPS, GCN_LR = [64, 16, 8], 3, 0.5
 TOL_PLAIN = 1e-6
 TOL_F64 = 1e-4
 
@@ -51,42 +89,30 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke: {what}")
 
 
-def main() -> None:
-    import torch
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke.py needs a CUDA device "
-                         "(torch.cuda.is_available() is false)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.splitlines()[0]
-    print(smi, flush=True)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
-          f"{sys.version.split()[0]}", flush=True)
+def counts(kernels) -> dict:
+    return {"wavepack_spmv": kernels.launches,
+            "wavepack_gradstream": kernels.gradstream_launches,
+            "wavepack_spmm": kernels.spmm_launches}
 
-    from hisparse_tpu_torch import SpmvConfig, SpmvOperator, pack, powerlaw_csr
-    from hisparse_tpu_torch.formats import native
-    from hisparse_tpu_torch.ops import _kernels
+
+def reset_counts(kernels) -> None:
+    kernels.launches = 0
+    kernels.gradstream_launches = 0
+    kernels.spmm_launches = 0
+
+
+def to_np(t) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def phase_families(dev) -> float:
+    """Phase 3: the SpMV kernel vs its plain version on the families."""
+    import torch
+    from hisparse_tpu_torch import SpmvOperator
     from hisparse_tpu_torch.ops.golden import spmv_f64
     from hisparse_tpu_torch.ops.spmv import spmv_tiles_plain, wavepack_spmv
-    from hisparse_tpu_torch.utils.bench import (
-        FP32_FAMILIES, MULTIBLOCK_FAMILY, device_time_ms, family_case, gbps,
-        gops)
-
-    # -- phase 2: builds --------------------------------------------------
-    t0 = time.perf_counter()
-    _kernels.load()
-    print(f"build: wavepack_spmv kernel {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    t0 = time.perf_counter()
-    check(native.available(), "the native packer did not build (g++)")
-    print(f"build: native packer {time.perf_counter() - t0:.1f} s",
-          flush=True)
-
-    dev = torch.device("cuda")
-
-    # -- phase 3: kernel vs plain version on the parity families ---------
+    from hisparse_tpu_torch.utils.bench import (FP32_FAMILIES,
+                                               MULTIBLOCK_FAMILY, family_case)
     worst = 0.0
     for fam in FP32_FAMILIES + (MULTIBLOCK_FAMILY,):
         m, wp, x = family_case(fam)
@@ -106,8 +132,17 @@ def main() -> None:
         check(e_kp <= TOL_PLAIN, f"{fam[0]}: kernel vs plain {e_kp}")
         check(e_k <= TOL_F64 and e_p <= TOL_F64,
               f"{fam[0]}: vs spmv_f64 {e_k} / {e_p}")
+    return worst
 
-    # -- phase 4: the main path at full size -----------------------------
+
+def phase_serving(dev, kernels):
+    """Phase 4: googleplus through SpmvOperator; returns (matrix, record,
+    launches of the path)."""
+    import torch
+    from hisparse_tpu_torch import SpmvConfig, SpmvOperator, pack, powerlaw_csr
+    from hisparse_tpu_torch.ops.golden import spmv_f64
+    from hisparse_tpu_torch.ops.spmv import spmv_tiles_plain, wavepack_spmv
+    from hisparse_tpu_torch.utils.bench import device_time_ms, gbps, gops
     t0 = time.perf_counter()
     m = powerlaw_csr(*GOOGLEPLUS["shape"], seed=GOOGLEPLUS["seed"])
     t1 = time.perf_counter()
@@ -124,11 +159,12 @@ def main() -> None:
     x = torch.from_numpy(x_np).to(dev)
     torch.cuda.synchronize()
 
-    _kernels.launches = 0
+    reset_counts(kernels)
     y = op(x)
     torch.cuda.synchronize()
-    launches = _kernels.launches
-    check(launches > 0, "the main path launched no wavepack_spmv kernel")
+    launches = counts(kernels)
+    check(launches["wavepack_spmv"] > 0,
+          "the serving path launched no wavepack_spmv kernel")
 
     y_np = y.cpu().numpy()
     check(y_np.shape == (m.num_rows,) and y_np.dtype == np.float32,
@@ -137,7 +173,7 @@ def main() -> None:
     ref = spmv_f64(m, x_np)
     err = rel_err(y_np, ref)
     print(f"googleplus: y vs spmv_f64 {err:.3e} (gate {TOL_F64}); "
-          f"kernel launches {launches}", flush=True)
+          f"kernel launches {launches['wavepack_spmv']}", flush=True)
     check(err <= TOL_F64, f"googleplus y vs spmv_f64 {err}")
 
     args = op.stream_args(x[op.col_order])
@@ -151,7 +187,10 @@ def main() -> None:
     check(e_kp <= TOL_PLAIN, f"googleplus kernel vs plain {e_kp}")
     del acc_k, acc_p, y_k, y_p
 
-    ms_k = device_time_ms(lambda: wavepack_spmv(*args, cfg), reps=50)
+    ms_k = device_time_ms(lambda: wavepack_spmv(*args, cfg), reps=50,
+                          queued=True)
+    # PR 1's timing, host enqueue included, beside the queued one
+    ms_k_host = device_time_ms(lambda: wavepack_spmv(*args, cfg), reps=50)
     ms_p = device_time_ms(lambda: spmv_tiles_plain(*args, cfg), reps=5,
                           warmup=1)
     ms_fwd = device_time_ms(lambda: op(x), reps=50)
@@ -169,6 +208,7 @@ def main() -> None:
     nnz, sb = m.nnz, wp.stream_bytes
     for what, ms, nbytes in (
             ("kernel wavepack_spmv", ms_k, sb),
+            ("kernel, host enqueue in", ms_k_host, sb),
             ("plain spmv_tiles_plain", ms_p, sb),
             ("forward SpmvOperator(x)", ms_fwd, sb),
             ("cuSPARSE csr @ x", ms_cs, csr_bytes)):
@@ -176,21 +216,414 @@ def main() -> None:
               f"{gbps(nbytes, ms):.1f} GB/s of {nbytes / 1e6:.1f} MB",
               flush=True)
     print(f"cuSPARSE y vs spmv_f64 {e_cs:.3e}", flush=True)
+    record = {"max_abs_err": max_abs, "ms": ms_k, "plain_ms": ms_p,
+              "ms_host_enqueue_in": ms_k_host, "forward_ms": ms_fwd,
+              "cusparse_ms": ms_cs}
+    return m, record, launches
 
-    record = {"kernels": [{
-        "name": "wavepack_spmv",
-        "route": "cuda",
-        "source": "hisparse_tpu_torch/csrc/wavepack_spmv.cu",
-        "replaces": "hisparse_tpu/ops/spmv.py:258",
-        "also_replaces": "hisparse_tpu/ops/spmv.py:295",
-        "launches": launches,
-        "max_abs_err": max_abs,
-        "ms": ms_k,
-        "plain_ms": ms_p,
-        "worst_family_rel_err": worst,
-        "forward_ms": ms_fwd,
-        "cusparse_ms": ms_cs,
-    }]}
+
+def phase_kernel_families(dev) -> tuple:
+    """Phase 5: the gradient-stream and SpMM kernels vs their plain
+    versions on the families; returns the worst relative errors."""
+    import torch
+    from hisparse_tpu_torch import SpmvOperator
+    from hisparse_tpu_torch.ops.spmv import (
+        build_xt, build_xt_multi, gradstream_tiles_plain, spmm_tiles_plain,
+        wavepack_gradstream, wavepack_spmm)
+    from hisparse_tpu_torch.utils.bench import (FP32_FAMILIES,
+                                               MULTIBLOCK_FAMILY, family_case)
+    worst_g = worst_s = 0.0
+    for i, fam in enumerate(FP32_FAMILIES + (MULTIBLOCK_FAMILY,)):
+        _, wp, x = family_case(fam)
+        op = SpmvOperator(wp, device=dev, permute_x=False)
+        cfg = op.cfg
+        rng = np.random.default_rng(500 + i)
+        mask = torch.from_numpy(
+            (rng.random(op.vals.shape) < 0.8).astype(np.float32)).to(dev)
+        g_acc = torch.from_numpy(rng.standard_normal(
+            (wp.n_blocks * cfg.sublanes, 128)).astype(np.float32)).to(dev)
+        args = (op.vals, op.idxT, mask, op.tile_part, op.tile_block,
+                op.class_map, g_acc,
+                build_xt(torch.from_numpy(x).to(dev), cfg, wp.n_parts), cfg)
+        out_k = wavepack_gradstream(*args)
+        out_p = gradstream_tiles_plain(*args)
+        e_g = float((out_k - out_p).abs().max()) / max(
+            float(out_p.abs().max()), 1e-30)
+        worst_g = max(worst_g, e_g)
+        e_s = []
+        for F in (1, 5, 16):
+            X = torch.from_numpy(rng.standard_normal(
+                (wp.num_cols, F)).astype(np.float32)).to(dev)
+            sargs = (op.vals, op.idxT, op.tile_part, op.class_map,
+                     op.run_start, op.run_end,
+                     build_xt_multi(X, cfg, wp.n_parts), cfg)
+            e_s.append(rel_err(to_np(wavepack_spmm(*sargs)),
+                               to_np(spmm_tiles_plain(*sargs))))
+        worst_s = max(worst_s, *e_s)
+        print(f"family {fam[0]:18s} gradstream kernel-vs-plain {e_g:.3e}  "
+              "spmm kernel-vs-plain F=1/5/16 "
+              + " / ".join(f"{e:.3e}" for e in e_s), flush=True)
+        check(e_g <= TOL_PLAIN, f"{fam[0]}: gradstream kernel vs plain {e_g}")
+        check(max(e_s) <= TOL_PLAIN, f"{fam[0]}: spmm kernel vs plain {e_s}")
+    return worst_g, worst_s
+
+
+def grad_step(sd, x, y_t, spmv_fn, gradstream_fn, r=None):
+    """StreamDiffSpmv's gradient step of 0.5*|A x - y_t|^2 through
+    ``spmv_fn`` and ``gradstream_fn``, the kernels' wrappers or their plain
+    versions: returns y, x_bar through the A^T pack, and both gradient
+    streams.  The residual r is y - y_t unless it is given."""
+    from hisparse_tpu_torch.ops.train_stream import grad_stream_operands
+    op, opT = sd.d.op, sd.d.opT
+    vA, vT = sd.vA.detach(), sd.vT.detach()
+
+    def spmv(o, v, vec):
+        vec = vec if o.col_order is None else vec[o.col_order]
+        acc = spmv_fn(*o.stream_args(vec, v), o.cfg)
+        return o.unpack_device(o.renamed_y(acc))
+
+    y = spmv(op, vA, x)
+    r = y - y_t if r is None else r
+    x_bar = spmv(opT, vT, r)
+    gA = gradstream_fn(*grad_stream_operands(op, vA, sd.maskA, r, x))
+    gT = gradstream_fn(*grad_stream_operands(opT, vT, sd.maskT, x, r))
+    return y, x_bar, gA, gT
+
+
+def print_profile(what: str, prof: dict, top: int = 6) -> None:
+    print(f"profile {what}: event-timed {prof['ms']:.4f} ms, device busy "
+          f"{prof['busy_us']:.1f} us, idle share {prof['idle_share']:.3f}",
+          flush=True)
+    for us, n, name in prof["ops"][:top]:
+        print(f"  {us:9.1f} us {100 * us / prof['busy_us']:5.1f}% {n:5.1f}x"
+              f"  {name[:90]}", flush=True)
+
+
+def phase_training(dev, kernels):
+    """Phase 6: transformer-70 through StreamDiffSpmv; returns the
+    gradient-stream record, the SpMV kernel's comparison on the training
+    packs and the launches of the path."""
+    import torch
+    from hisparse_tpu_torch import (SpmvConfig, StreamDiffSpmv,
+                                    uniform_sparse_csr)
+    from hisparse_tpu_torch.ops.spmv import (gradstream_tiles_plain,
+                                             spmv_tiles_plain,
+                                             wavepack_gradstream,
+                                             wavepack_spmv)
+    from hisparse_tpu_torch.ops.train_stream import grad_stream_operands
+    from hisparse_tpu_torch.utils.bench import (device_time_ms,
+                                               profile_breakdown)
+    t0 = time.perf_counter()
+    m = uniform_sparse_csr(*T70["shape"], seed=T70["seed"])
+    t1 = time.perf_counter()
+    sd = StreamDiffSpmv(m, SpmvConfig(**T70_CFG), SpmvConfig(**T70_CFG_T),
+                        device=dev, split_max=None)
+    t2 = time.perf_counter()
+    print(f"transformer-70: {m.num_rows}x{m.num_cols} nnz {sd.m.nnz}; "
+          f"generate {t1 - t0:.1f} s, pack A and A^T + maps {t2 - t1:.1f} s",
+          flush=True)
+    for tag, wp in (("A", sd.d.wp), ("A^T", sd.d.wpT)):
+        print(f"transformer-70 pack {tag}: tiles {wp.num_tiles}, blocks "
+              f"{wp.n_blocks}, parts {wp.n_parts}, fill {wp.fill:.4f}, "
+              f"stream {wp.stream_bytes / 1e6:.1f} MB", flush=True)
+    rng = np.random.default_rng(3)
+    x_np = rng.standard_normal(sd.num_cols).astype(np.float32)
+    yt_np = rng.standard_normal(sd.num_rows).astype(np.float32)
+    x = torch.from_numpy(x_np).to(dev)
+    y_t = torch.from_numpy(yt_np).to(dev)
+    torch.cuda.synchronize()
+
+    vals0 = sd.values()
+    reset_counts(kernels)
+    losses = []
+    for step in range(T70_STEPS):
+        sd.zero_grad()
+        xg = x.clone().requires_grad_(True)
+        y = sd(xg)
+        r = y.detach() - y_t
+        losses.append(float(0.5 * torch.dot(r, r)))
+        y.backward(r)
+        if step == 0:
+            first = (to_np(y), to_np(r), to_np(xg.grad),
+                     sd.vA.grad.clone(), sd.vT.grad.clone())
+            rows_x = to_np(r[sd.d.rows] * x[sd.d.cols])
+        sd.sgd_step(T70_LR)
+        check(np.array_equal(sd.values(), sd.values_T()),
+              f"transformer-70: layouts differ after step {step + 1}")
+    r = sd(x).detach() - y_t
+    losses.append(float(0.5 * torch.dot(r, r)))
+    torch.cuda.synchronize()
+    launches = counts(kernels)
+    check(launches["wavepack_spmv"] > 0 and launches["wavepack_gradstream"]
+          > 0, f"the training path's kernel counts {launches}")
+    print(f"transformer-70: loss {' -> '.join(f'{v:.6g}' for v in losses)};"
+          f" launches {launches}", flush=True)
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"transformer-70 loss did not fall: {losses}")
+
+    # step 1 against float64 scipy on the values the stream holds
+    y0, r0, xbar0, gA0, gT0 = first
+    a64 = sd.m.to_scipy().astype(np.float64)
+    a64.data = vals0.astype(np.float64)
+    e_y = rel_err(y0, a64 @ x_np.astype(np.float64))
+    e_xb = rel_err(xbar0, a64.T @ r0.astype(np.float64))
+    dA_exact = np.array_equal(sd.grads_csr(gA0), rows_x)
+    print(f"transformer-70 step 1: y vs f64 {e_y:.3e}, x_bar vs f64 "
+          f"{e_xb:.3e} (gate {TOL_F64}); dA == g[rows]*x[cols]: {dA_exact}",
+          flush=True)
+    check(e_y <= TOL_F64 and e_xb <= TOL_F64,
+          f"transformer-70 step 1 vs f64: {e_y} / {e_xb}")
+    check(dA_exact, "transformer-70: dA differs from g[rows]*x[cols]")
+
+    # one DiffSpmv forward + backward on the same packs and values
+    xd = x.clone().requires_grad_(True)
+    yd = sd.d(xd)
+    r0_dev = torch.from_numpy(r0).to(dev)
+    yd.backward(r0_dev)
+    e_d = max(rel_err(to_np(yd), y0), rel_err(to_np(xd.grad), xbar0),
+              rel_err(to_np(sd.d.vals.grad), sd.grads_csr(gA0)))
+    print(f"transformer-70: DiffSpmv vs StreamDiffSpmv {e_d:.3e} "
+          f"(gate {TOL_PLAIN})", flush=True)
+    check(e_d <= TOL_PLAIN, f"DiffSpmv vs StreamDiffSpmv {e_d}")
+
+    # one gradient step through the kernels against the plain versions on
+    # the same streams: y and x_bar (the SpMV kernel on the A and A^T
+    # packs) within TOL_PLAIN, both gradient streams bit for bit, the
+    # plain step given the kernels' residual
+    y_k, xb_k, gA_k, gT_k = grad_step(sd, x, y_t, wavepack_spmv,
+                                      wavepack_gradstream)
+    y_p, xb_p, gA_p, gT_p = grad_step(sd, x, y_t, spmv_tiles_plain,
+                                      gradstream_tiles_plain, r=y_k - y_t)
+    e_ky = rel_err(to_np(y_k), to_np(y_p))
+    e_kxb = rel_err(to_np(xb_k), to_np(xb_p))
+    spmv_abs = max(float((y_k - y_p).abs().max()),
+                   float((xb_k - xb_p).abs().max()))
+    max_abs = max(float((gA_k - gA_p).abs().max()),
+                  float((gT_k - gT_p).abs().max()))
+    print(f"transformer-70 step, kernels vs plain: y {e_ky:.3e}, x_bar "
+          f"{e_kxb:.3e} (gate {TOL_PLAIN}); gradient streams A / A^T "
+          f"bit-equal {torch.equal(gA_k, gA_p)} / {torch.equal(gT_k, gT_p)}",
+          flush=True)
+    check(e_ky <= TOL_PLAIN and e_kxb <= TOL_PLAIN,
+          f"transformer-70 SpMV kernel vs plain: y {e_ky}, x_bar {e_kxb}")
+    check(torch.equal(gA_k, gA_p) and torch.equal(gT_k, gT_p),
+          f"transformer-70 gradstream kernel vs plain: max|d| {max_abs}")
+    del y_k, xb_k, gA_k, gT_k, y_p, xb_p, gA_p, gT_p
+
+    # times: the gradient stream at the A pack's shape, forward, step
+    gargs = grad_stream_operands(sd.d.op, sd.vA.detach(), sd.maskA, r0_dev,
+                                 x)
+    ms_gk = device_time_ms(lambda: wavepack_gradstream(*gargs), reps=20,
+                           queued=True)
+    ms_gp = device_time_ms(lambda: gradstream_tiles_plain(*gargs), reps=5,
+                           warmup=1)
+
+    def fwd():
+        with torch.no_grad():
+            sd(x)
+
+    def step():
+        sd.zero_grad(set_to_none=True)
+        xg = x.detach().requires_grad_(True)
+        y = sd(xg)
+        y.backward(y.detach() - y_t)
+
+    ms_fwd = device_time_ms(fwd, reps=20)
+    ms_step = device_time_ms(step, reps=20)
+    ms_plain = device_time_ms(
+        lambda: grad_step(sd, x, y_t, spmv_tiles_plain,
+                          gradstream_tiles_plain), reps=3, warmup=1)
+    nnz = sd.m.nnz
+    print(f"time transformer-70 gradstream kernel {ms_gk:.4f} ms, plain "
+          f"{ms_gp:.4f} ms (A pack)", flush=True)
+    print(f"time transformer-70 forward {ms_fwd:.4f} ms "
+          f"({2 * nnz / ms_fwd / 1e6:.2f} GOPS); gradient step {ms_step:.4f}"
+          f" ms kernels, {ms_plain:.4f} ms plain versions", flush=True)
+    prof_fwd = profile_breakdown(fwd)
+    print_profile("transformer-70 forward", prof_fwd)
+    prof_step = profile_breakdown(step)
+    print_profile("transformer-70 gradient step", prof_step)
+    return {"max_abs_err": max_abs, "ms": ms_gk, "plain_ms": ms_gp,
+            "forward_ms": ms_fwd, "step_ms": ms_step,
+            "plain_step_ms": ms_plain,
+            "step_idle_share": prof_step["idle_share"]}, {
+        "max_abs_err": spmv_abs, "rel_err_y": e_ky,
+        "rel_err_x_bar": e_kxb}, launches
+
+
+def phase_gcn(dev, kernels, m):
+    """Phase 7: the GCN on googleplus; returns the SpMM record and the
+    launches of the path."""
+    import torch
+    from hisparse_tpu_torch import GCN, SpmvConfig
+    from hisparse_tpu_torch.ops.spmv import (build_xt_multi,
+                                             spmm_tiles_plain, wavepack_spmm)
+    from hisparse_tpu_torch.utils.bench import (device_time_ms,
+                                               profile_breakdown)
+    t0 = time.perf_counter()
+    gcn = GCN(m, GCN_DIMS, SpmvConfig(**GOOGLEPLUS_CFG), device=dev, seed=0,
+              **GOOGLEPLUS_PACK)
+    print(f"gcn: normalize + pack A-hat and A-hat^T "
+          f"{time.perf_counter() - t0:.1f} s; nnz {gcn.agg.m.nnz}",
+          flush=True)
+    for tag, wp in (("A-hat", gcn.agg.wp), ("A-hat^T", gcn.agg.wpT)):
+        print(f"gcn pack {tag}: tiles {wp.num_tiles}, blocks {wp.n_blocks}, "
+              f"parts {wp.n_parts}, fill {wp.fill:.4f}, stream "
+              f"{wp.stream_bytes / 1e6:.1f} MB", flush=True)
+    n = gcn.num_nodes
+    X_np = np.random.default_rng(5).standard_normal(
+        (n, GCN_DIMS[0])).astype(np.float32)
+    labels = torch.from_numpy(
+        np.random.default_rng(6).integers(0, GCN_DIMS[-1], n)).to(dev)
+    X = torch.from_numpy(X_np).to(dev)
+    torch.cuda.synchronize()
+
+    params0 = [(to_np(w).astype(np.float64), to_np(b).astype(np.float64))
+               for w, b in zip(gcn.w, gcn.b)]
+    reset_counts(kernels)
+    with torch.no_grad():
+        logits = to_np(gcn(X))
+    losses = []
+    for _ in range(GCN_STEPS):
+        gcn.zero_grad()
+        loss = torch.nn.functional.cross_entropy(gcn(X), labels)
+        loss.backward()
+        losses.append(float(loss.detach()))
+        with torch.no_grad():
+            for p in gcn.parameters():
+                p -= GCN_LR * p.grad
+    with torch.no_grad():
+        losses.append(float(torch.nn.functional.cross_entropy(gcn(X),
+                                                              labels)))
+    torch.cuda.synchronize()
+    launches = counts(kernels)
+    check(launches["wavepack_spmm"] > 0,
+          f"the GCN path's kernel counts {launches}")
+
+    # float64 oracle with the first forward's parameters
+    a64 = gcn.agg.m.to_scipy().astype(np.float64)
+    h = X_np.astype(np.float64)
+    for i, (w, b) in enumerate(params0):
+        h = a64 @ (h @ w) + b if GCN_DIMS[i + 1] < GCN_DIMS[i] else \
+            (a64 @ h) @ w + b
+        if i < len(params0) - 1:
+            h = np.maximum(h, 0.0)
+    e_l = rel_err(logits, h)
+    print(f"gcn: logits {logits.shape} vs f64 {e_l:.3e} (gate {TOL_F64}); "
+          f"loss {' -> '.join(f'{v:.6g}' for v in losses)}; launches "
+          f"{launches}", flush=True)
+    check(logits.shape == (n, GCN_DIMS[-1]) and np.isfinite(logits).all(),
+          "gcn logits are not finite of shape (n, classes)")
+    check(e_l <= TOL_F64, f"gcn logits vs f64 {e_l}")
+    check(losses[-1] < losses[0], f"gcn loss did not fall: {losses}")
+
+    def step():
+        gcn.zero_grad(set_to_none=True)
+        torch.nn.functional.cross_entropy(gcn(X), labels).backward()
+
+    prof = profile_breakdown(step)
+    print_profile("gcn training step", prof)
+    # the SpMM kernel against its plain version at the path's shapes: Â
+    # and Â^T at F = 8 and 16
+    max_abs, by_shape = 0.0, {}
+    for tag, op in (("A-hat", gcn.agg.op), ("A-hat^T", gcn.agg.opT)):
+        for F in (8, 16):
+            H = torch.from_numpy(np.random.default_rng(7 + F).standard_normal(
+                (n, F)).astype(np.float32)).to(dev)
+            if op.col_order is not None:
+                H = H[op.col_order]
+            sargs = (op.vals, op.idxT, op.tile_part, op.class_map,
+                     op.run_start, op.run_end,
+                     build_xt_multi(H, op.cfg, op.wp.n_parts), op.cfg)
+            acc_k = wavepack_spmm(*sargs)
+            acc_p = spmm_tiles_plain(*sargs)
+            max_abs = max(max_abs, float((acc_k - acc_p).abs().max()))
+            e_kp = rel_err(to_np(acc_k), to_np(acc_p))
+            print(f"gcn spmm {tag} F={F}: kernel vs plain {e_kp:.3e} (gate "
+                  f"{TOL_PLAIN})", flush=True)
+            check(e_kp <= TOL_PLAIN, f"gcn spmm {tag} F={F} kernel vs plain "
+                  f"{e_kp}")
+            del acc_k, acc_p
+            by_shape[tag, F] = sargs
+    # times: the SpMM kernel at F = 16 on Â, the first layer's aggregation
+    sargs = by_shape["A-hat", 16]
+    ms_k = device_time_ms(lambda: wavepack_spmm(*sargs), reps=20,
+                          queued=True)
+    ms_p = device_time_ms(lambda: spmm_tiles_plain(*sargs), reps=3,
+                          warmup=1)
+    print(f"time gcn training step {prof['ms']:.4f} ms; spmm F=16 kernel "
+          f"{ms_k:.4f} ms, plain {ms_p:.4f} ms (max|d| over the four "
+          f"{max_abs:.3e})", flush=True)
+    return {"max_abs_err": max_abs, "ms": ms_k, "plain_ms": ms_p,
+            "gcn_step_ms": prof["ms"],
+            "step_idle_share": prof["idle_share"]}, launches
+
+
+def main() -> None:
+    t_start = time.perf_counter()
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py needs a CUDA device "
+                         "(torch.cuda.is_available() is false)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.splitlines()[0]
+    print(smi, flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
+          f"{sys.version.split()[0]}", flush=True)
+
+    from hisparse_tpu_torch.formats import native
+    from hisparse_tpu_torch.ops import _kernels
+
+    # -- phase 2: builds --------------------------------------------------
+    t0 = time.perf_counter()
+    _kernels.load()
+    print(f"build: {len(_kernels.KERNELS)} kernels from "
+          f"{len(_kernels.LIBRARIES)} sources in parallel "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    check(native.available(), "the native packer did not build (g++)")
+    print(f"build: native packer {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    dev = torch.device("cuda")
+    worst = phase_families(dev)                          # phase 3
+    m, rec_spmv, l_serve = phase_serving(dev, _kernels)  # phase 4
+    worst_g, worst_s = phase_kernel_families(dev)        # phase 5
+    rec_grad, rec_train_spmv, l_train = phase_training(
+        dev, _kernels)                                   # phase 6
+    rec_spmm, l_gcn = phase_gcn(dev, _kernels, m)        # phase 7
+
+    paths = {"serving": l_serve, "training": l_train, "gcn": l_gcn}
+    src = "hisparse_tpu_torch/csrc/"
+    ref = "hisparse_tpu/ops/spmv.py"
+    # the SpMV kernel's max_abs_err covers googleplus and the training packs
+    rec_spmv = dict(rec_spmv, max_abs_err=max(
+        rec_spmv["max_abs_err"], rec_train_spmv["max_abs_err"]),
+        training=rec_train_spmv)
+    # each kernel's source and every TPU kernel body it replaces
+    rows = [
+        ("wavepack_spmv", "wavepack_spmv.cu", f"{ref}:258, {ref}:295",
+         rec_spmv, {"worst_family_rel_err": worst}),
+        ("wavepack_gradstream", "wavepack_gradstream.cu", f"{ref}:516",
+         rec_grad, {"worst_family_rel_err": worst_g}),
+        ("wavepack_spmm", "wavepack_spmv.cu", f"{ref}:325, {ref}:363",
+         rec_spmm, {"worst_family_rel_err": worst_s}),
+    ]
+    record = {"kernels": []}
+    for name, source, replaces, rec, extra in rows:
+        entry = {"name": name, "route": "cuda", "source": f"{src}{source}",
+                 "replaces": replaces}
+        entry.update(
+            launches=sum(p[name] for p in paths.values()),
+            launches_by_path={k: p[name] for k, p in paths.items()},
+            **rec, **extra)
+        record["kernels"].append(entry)
+    print(f"chip_smoke: phases 1-7 in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,13 @@
 """hisparse_tpu_torch — the PyTorch + CUDA port of hisparse_tpu.
 
-The wavepack format, its packer and the packed-stream SpMV main path
-(``pack`` -> ``SpmvOperator`` -> natural-order y) for an NVIDIA H100.  The
-host layers are copies of the JAX package's (numpy and the native C++
-scheduler); the TPU's Pallas SpMV kernels become one CUDA C++ kernel
-(``csrc/wavepack_spmv.cu``).  This package imports neither JAX nor
-``hisparse_tpu``.
+The wavepack format, its packer, the packed-stream SpMV main path
+(``pack`` -> ``SpmvOperator`` -> natural-order y) and SpMM, and the
+training paths (``DiffSpmv``, ``StreamDiffSpmv``, ``DiffSpmm``, ``GCN``)
+for an NVIDIA H100.  The host layers are copies of the JAX package's
+(numpy and the native C++ scheduler); the TPU's Pallas kernels on these
+paths become CUDA C++ kernels (``csrc/wavepack_spmv.cu``, SpMV and
+SpMM, and ``csrc/wavepack_gradstream.cu``).  This package imports
+neither JAX nor ``hisparse_tpu``.
 """
 from .config import LANES, SpmvConfig, GRAPH_CONFIG, NN_CONFIG
 from .formats.csr import (CSRMatrix, load_npz, save_npz, round_dims,
@@ -14,8 +16,12 @@ from .formats.csr import (CSRMatrix, load_npz, save_npz, round_dims,
                           rmat_csr, block_structured_csr)
 from .formats.wavepack import (Wavepack, pack, decode, save_wavepack,
                                load_wavepack)
-from .interop import wavepack_from_arrays
-from .ops.spmv import SpmvOperator, spmv
+from .interop import (wavepack_from_arrays, stream_from_jax,
+                      gcn_params_from_jax)
+from .ops.spmv import SpmvOperator, spmv, spmm
+from .ops.autodiff import DiffSpmv
+from .ops.train_stream import StreamDiffSpmv
+from .models.gnn import DiffSpmm, GCN, gcn_normalize
 
 __all__ = [
     "LANES", "SpmvConfig", "GRAPH_CONFIG", "NN_CONFIG",
@@ -23,6 +29,8 @@ __all__ = [
     "normalize_by_outdegree", "dense_csr", "uniform_sparse_csr",
     "powerlaw_csr", "rmat_csr", "block_structured_csr", "Wavepack", "pack",
     "decode", "save_wavepack", "load_wavepack", "wavepack_from_arrays",
-    "SpmvOperator", "spmv",
+    "stream_from_jax", "gcn_params_from_jax",
+    "SpmvOperator", "spmv", "spmm", "DiffSpmv", "StreamDiffSpmv",
+    "DiffSpmm", "GCN", "gcn_normalize",
 ]
-__version__ = "0.1.0"
+__version__ = "0.2.0"

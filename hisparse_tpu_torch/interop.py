@@ -11,13 +11,23 @@ either runs in the port unchanged:
     load_wavepack``) reads an ``.npz`` written by
     ``hisparse_tpu.save_wavepack``: the file layout is the same.
 
-This module imports neither JAX nor the JAX package.
+Training state crosses too:
+
+  * :func:`stream_from_jax` turns an array in a JAX operator's stream
+    layout (``StreamDiffSpmv``'s ``vA`` / ``vT``, its masks, its gradient
+    streams) into the port's, which has no pad tiles;
+  * :func:`gcn_params_from_jax` turns a JAX GCN parameter list into the
+    port's (``GCN.load_params`` takes it).
+
+This module imports neither JAX nor the JAX package: it takes numpy
+arrays (``np.asarray`` of a JAX array is one).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
 from .config import SpmvConfig
 from .formats.wavepack import Wavepack
@@ -35,3 +45,28 @@ def wavepack_from_arrays(config, **fields) -> Wavepack:
     arrays = {k: (np.asarray(v) if isinstance(v, np.ndarray) else v)
               for k, v in fields.items()}
     return Wavepack(config=cfg, **arrays)
+
+
+def stream_from_jax(arr, tile_src) -> np.ndarray:
+    """A JAX operator's (T_jax, S, 128) stream-layout array -> the port's
+    (T, S, 128): real tile k of the port is the JAX row j with
+    ``tile_src[j] == k`` (``hisparse_tpu.SpmvOperator.tile_src``), and pad
+    tiles (``tile_src == -1``) are dropped.  A flat array of T_jax*S*128
+    elements is taken as well."""
+    tile_src = np.asarray(tile_src)
+    arr = np.asarray(arr).reshape(tile_src.shape[0], -1)
+    real = tile_src >= 0
+    T = int(real.sum())
+    if not np.array_equal(np.sort(tile_src[real]), np.arange(T)):
+        raise ValueError("tile_src must map its real rows onto 0..T-1 "
+                         "once each")
+    out = np.empty((T, arr.shape[1]), arr.dtype)
+    out[tile_src[real]] = arr[real]
+    return out.reshape(T, -1, 128)
+
+
+def gcn_params_from_jax(params):
+    """A JAX GCN parameter list ``[{'w', 'b'}, ...]`` (numpy or JAX
+    arrays) -> the port's, float32 CPU tensors (``GCN.load_params``)."""
+    return [{k: torch.from_numpy(np.array(p[k], np.float32))
+             for k in ("w", "b")} for p in params]

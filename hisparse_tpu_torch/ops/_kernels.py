@@ -1,20 +1,24 @@
 """Build and bind the port's CUDA kernels.
 
-``csrc/wavepack_spmv.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a
+Every ``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, in the gitignored
-``hisparse_tpu_torch/_build/`` directory, at first use.  The library's
-name carries a hash of the source, so an edited source rebuilds.  It is
-loaded with ``ctypes``; every pointer and the stream pass as
-``c_void_p``.  Nothing is built at import: the module is also imported
-on machines without ``nvcc`` or a GPU, where only the plain versions run.
+``hisparse_tpu_torch/_build/`` directory, at first use; the sources build
+in parallel, one ``nvcc`` each.  The libraries sit in a directory named by
+a hash of every ``.cu`` and ``.cuh`` source, so an edited source or header
+rebuilds all of them.  They are loaded with ``ctypes``; every pointer and
+the stream pass as ``c_void_p``.  Nothing is built at import: the module
+is also imported on machines without ``nvcc`` or a GPU, where only the
+plain versions run.
 
-``launches`` counts the launches of the wavepack SpMV kernel made through
-:func:`launch_wavepack_spmv`, so a run can show that its main path went
-through the kernel.
+Each kernel has its own launch counter, raised by one per launch made
+through its ``launch_*`` function, so a run can show that its main path
+went through the kernel: ``launches`` (the wavepack SpMV),
+``gradstream_launches`` and ``spmm_launches``.
 """
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -24,14 +28,34 @@ import threading
 import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "wavepack_spmv.cu")
+_CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
+# one shared library per csrc/<name>.cu
+LIBRARIES = ("wavepack_spmv", "wavepack_gradstream")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# each kernel's library, C entry point and argument types; SpMV and SpMM
+# are one kernel body of wavepack_spmv.cu at one and at F features
+_ENTRY = {
+    "wavepack_spmv": ("wavepack_spmv", "wavepack_spmv_f32",
+                      [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _P]),
+    "wavepack_gradstream": ("wavepack_gradstream", "wavepack_gradstream_f32",
+                            [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                             _P, _I, _I, _I, _I, _I, _P]),
+    "wavepack_spmm": ("wavepack_spmv", "wavepack_spmm_f32",
+                      [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _I, _P]),
+}
+KERNELS = tuple(_ENTRY)
+
 _lock = threading.Lock()
-_lib = None
+_fns = None
 launches = 0
+gradstream_launches = 0
+spmm_launches = 0
 
 
 def _nvcc() -> str:
@@ -45,54 +69,121 @@ def _nvcc() -> str:
                        "hisparse_tpu_torch's kernels")
 
 
-def _library_path() -> str:
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(_BUILD, f"wavepack_spmv-{digest}.so")
+def build_dir() -> str:
+    """``_build/kernels-<hash of every .cu and .cuh source>``."""
+    digest = hashlib.sha256()
+    for path in sorted(glob.glob(os.path.join(_CSRC, "*.cu"))
+                       + glob.glob(os.path.join(_CSRC, "*.cuh"))):
+        digest.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    return os.path.join(_BUILD, f"kernels-{digest.hexdigest()[:16]}")
 
 
-def load() -> ctypes.CDLL:
-    """Build (if the source changed) and load the kernel library."""
-    global _lib
-    with _lock:
-        if _lib is not None:
-            return _lib
-        so = _library_path()
-        if not os.path.exists(so):
-            os.makedirs(_BUILD, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed building {_SRC}:\n"
-                                   f"{proc.stdout}{proc.stderr}")
+def _build(out_dir: str) -> None:
+    """Compile every library that is not built yet, one nvcc each, all
+    started together; raise with the compiler's output if one fails."""
+    os.makedirs(out_dir, exist_ok=True)
+    procs = []
+    for name in LIBRARIES:
+        so = os.path.join(out_dir, f"{name}.so")
+        if os.path.exists(so):
+            continue
+        tmp = f"{so}.{os.getpid()}.tmp"
+        src = os.path.join(_CSRC, f"{name}.cu")
+        procs.append((src, so, tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for src, so, tmp, proc in procs:
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed building {src}:\n{log}")
+        else:
             os.replace(tmp, so)
-        lib = ctypes.CDLL(so)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.wavepack_spmv_f32.argtypes = [p, p, i, i, i, p, p, p, p, p, p,
-                                          i, i, i, i, i, p]
-        lib.wavepack_spmv_f32.restype = ctypes.c_int
-        _lib = lib
-        return lib
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def load() -> dict:
+    """Build (if a source changed) and load every kernel; returns the C
+    entry points by kernel name."""
+    global _fns
+    with _lock:
+        if _fns is not None:
+            return _fns
+        out_dir = build_dir()
+        _build(out_dir)
+        libs = {name: ctypes.CDLL(os.path.join(out_dir, f"{name}.so"))
+                for name in LIBRARIES}
+        fns = {}
+        for name, (lib, entry, argtypes) in _ENTRY.items():
+            fn = getattr(libs[lib], entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            fns[name] = fn
+        _fns = fns
+        return fns
+
+
+def _check(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _ptr(t) -> int | None:
+    return t.data_ptr() if t is not None else None
 
 
 def launch_wavepack_spmv(vals, idxT, tile_part, cmap, run_start, run_end,
                          xt, out, *, steal: bool, block_major: bool,
                          n_ops: int, K: int) -> None:
-    """Launch the kernel on the current stream.  The caller has checked
-    device, dtype, shape and contiguity (ops/spmv.py:wavepack_spmv)."""
+    """Launch the SpMV kernel on the current stream.  The caller has
+    checked device, dtype, shape and contiguity
+    (ops/spmv.py:wavepack_spmv)."""
     global launches
-    lib = load()
-    n_blocks = run_start.shape[0]
-    S = vals.shape[1]
-    rc = lib.wavepack_spmv_f32(
+    rc = load()["wavepack_spmv"](
         vals.data_ptr(), idxT.data_ptr(), int(idxT.dtype == torch.int16),
-        int(steal), int(block_major), tile_part.data_ptr(),
-        cmap.data_ptr() if cmap is not None else None,
+        int(steal), int(block_major), tile_part.data_ptr(), _ptr(cmap),
         run_start.data_ptr(), run_end.data_ptr(), xt.data_ptr(),
-        out.data_ptr(), n_blocks, S, n_ops, K, xt.shape[1],
-        torch.cuda.current_stream(vals.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"wavepack_spmv kernel launch failed: CUDA "
-                           f"error {rc}")
+        out.data_ptr(), run_start.shape[0], vals.shape[1], n_ops, K,
+        xt.shape[1], _stream(vals))
+    _check("wavepack_spmv", rc)
     launches += 1
+
+
+def launch_wavepack_gradstream(vals, idxT, mask, tile_part, tile_block,
+                               cmap, g_acc, xt, out, *, steal: bool,
+                               block_major: bool, n_ops: int,
+                               K: int) -> None:
+    """Launch the gradient-stream kernel on the current stream (checked by
+    ops/spmv.py:wavepack_gradstream)."""
+    global gradstream_launches
+    rc = load()["wavepack_gradstream"](
+        vals.data_ptr(), idxT.data_ptr(), int(idxT.dtype == torch.int16),
+        int(steal), int(block_major), mask.data_ptr(),
+        tile_part.data_ptr(), tile_block.data_ptr(), _ptr(cmap),
+        g_acc.data_ptr(), xt.data_ptr(), out.data_ptr(), vals.shape[0],
+        vals.shape[1], n_ops, K, xt.shape[1], _stream(vals))
+    _check("wavepack_gradstream", rc)
+    gradstream_launches += 1
+
+
+def launch_wavepack_spmm(vals, idxT, tile_part, cmap, run_start, run_end,
+                         xt, out, *, steal: bool, block_major: bool,
+                         n_ops: int, K: int) -> None:
+    """Launch the SpMM kernel on the current stream (checked by
+    ops/spmv.py:wavepack_spmm); xt is (n_parts, F, CT, 128, 128)."""
+    global spmm_launches
+    rc = load()["wavepack_spmm"](
+        vals.data_ptr(), idxT.data_ptr(), int(idxT.dtype == torch.int16),
+        int(steal), int(block_major), tile_part.data_ptr(), _ptr(cmap),
+        run_start.data_ptr(), run_end.data_ptr(), xt.data_ptr(),
+        out.data_ptr(), run_start.shape[0], vals.shape[1], n_ops, K,
+        xt.shape[2], xt.shape[1], _stream(vals))
+    _check("wavepack_spmm", rc)
+    spmm_launches += 1

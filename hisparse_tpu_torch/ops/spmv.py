@@ -1,8 +1,10 @@
-"""Packed-stream SpMV in PyTorch: the port of ``hisparse_tpu/ops/spmv.py``'s
-main path (``SpmvOperator`` -> ``_spmv_call`` -> ``_stripe_fold`` ->
-``unpack_device``).
+"""Packed-stream SpMV and SpMM in PyTorch: the port of
+``hisparse_tpu/ops/spmv.py``'s main path (``SpmvOperator`` ->
+``_spmv_call`` -> ``_stripe_fold`` -> ``unpack_device``), of its SpMM
+(``SpmvOperator.matmul`` -> ``_spmm_call``) and of its gradient stream
+(``_gradstream_call``).
 
-Per call, for a dense vector x:
+Per SpMV call, for a dense vector x:
 
   1. ``build_xt``       x -> XT, the (n_parts, CT, 128, 128) bank blocks
                         (plus the two-choice rotated copies);
@@ -14,6 +16,12 @@ Per call, for a dense vector x:
   3. ``stripe_fold``    S/R sublane rows -> R rows per block (renamed y);
   4. ``unpack_device``  renamed y -> natural row order (hub-split partials
                         summed).
+
+SpMM runs the same steps for up to 16 feature columns at a time
+(``build_xt_multi``, ``wavepack_spmm`` / ``spmm_tiles_plain``); the
+gradient stream ``wavepack_gradstream`` / ``gradstream_tiles_plain`` gives
+dL/dvals in the pack's stream layout.  The three kernels and their plain
+versions share one routing: ``csrc/route.cuh`` and ``route_plain``.
 
 This slice covers fp32 plus_times packs: select-chain and block-major,
 two_choice, steal_mantissa, idx16, any number of column partitions.  bf16
@@ -28,6 +36,8 @@ import torch
 from ..config import LANES, SpmvConfig
 from ..formats.wavepack import Wavepack, bank_shift
 from . import _kernels
+
+SPMM_MAX_F = 16              # features per SpMM kernel launch
 
 
 def check_supported(cfg: SpmvConfig) -> None:
@@ -66,6 +76,14 @@ def build_xt(x: torch.Tensor, cfg: SpmvConfig, n_parts: int) -> torch.Tensor:
     return xt.contiguous()
 
 
+def build_xt_multi(X: torch.Tensor, cfg: SpmvConfig,
+                   n_parts: int) -> torch.Tensor:
+    """F-stacked vector loader (``_build_xt_multi``): (num_cols, F) ->
+    (n_parts, F, CT, 128, 128), partition-leading like the JAX layout."""
+    return torch.stack([build_xt(X[:, f], cfg, n_parts)
+                        for f in range(X.shape[1])], dim=1)
+
+
 def block_runs(tile_block: np.ndarray, n_blocks: int):
     """Each row block's tile run ``[start, end)`` in the stream, as two
     int32 arrays of length n_blocks (empty blocks get start == end == 0).
@@ -92,14 +110,16 @@ def _n_ops(cfg: SpmvConfig) -> int:
     return cfg.classes_per_group if cfg.block_major else cfg.total_blocks
 
 
-def spmv_tiles_plain(vals, idxT, tile_part, cmap, run_start, run_end, xt,
-                     cfg: SpmvConfig) -> torch.Tensor:
-    """Plain PyTorch version of the kernel (``_route_x`` + ``_tile_routed``
-    + ``_tile_body`` for fp32 plus_times, vectorised over tiles).
+def route_plain(vals, idxT, tile_part, cmap, cfg: SpmvConfig, CT: int):
+    """Plain PyTorch version of the kernels' routing (``csrc/route.cuh``;
+    the TPU's ``_route_x`` + ``_tile_routed`` for fp32), vectorised over
+    the stream.
 
-    Returns the (n_blocks*S, 128) accumulator.  Each block sums its tiles
-    in stream order, multiply and add rounded separately, as the kernel
-    does."""
+    Returns ``(v, off)``: ``v`` the (T, S, 128) values with the stolen src
+    bits of steal_mantissa packs cleared, and ``off`` the int64 flat
+    offset of each slot's routed x in an XT of shape (n_parts, CT, 128,
+    128): XT[part[t], blk, src, h], with src the slot's crossbar lane and
+    (blk, h) decoded from the idx word of gather slot (s, src)."""
     check_supported(cfg)
     T, S, _ = vals.shape
     G = S // 128
@@ -108,19 +128,21 @@ def spmv_tiles_plain(vals, idxT, tile_part, cmap, run_start, run_end, xt,
     # undo the per-group transpose: packed[t, g*128 + r, j] is the word of
     # gather slot (g*128 + r, j), stored at idxT[t, g*128 + j, r]
     packed = idx.reshape(T, G, 128, 128).transpose(2, 3).reshape(T, S, LANES)
-    h = packed & 0x7F
-    n_ops = _n_ops(cfg)
     if cfg.steal_mantissa:
         vbits = vals.view(torch.int32)
-        src = vbits & 0x7F
+        src = (vbits & 0x7F).long()
         v = (vbits & -128).view(torch.float32)
+    else:
+        src = ((packed >> 11) & 0x7F).long()
+        v = vals
+    w = torch.gather(packed, 2, src)          # word of gather slot (s, src)
+    n_ops = _n_ops(cfg)
+    if cfg.steal_mantissa:
         # the whole word is b*128 + h: the select chain (w >= i*128) keeps
         # the highest operand i it reaches
-        op = torch.clamp(packed >> 7, 0, n_ops - 1)
+        op = torch.clamp(w >> 7, 0, n_ops - 1)
     else:
-        src = (packed >> 11) & 0x7F
-        v = vals
-        b = (packed >> 7) & 0xF
+        b = (w >> 7) & 0xF
         op = torch.where(b < n_ops, b, torch.zeros_like(b))
     if cfg.block_major:
         K = cfg.classes_per_group
@@ -130,19 +152,97 @@ def spmv_tiles_plain(vals, idxT, tile_part, cmap, run_start, run_end, xt,
         blk = cmap.reshape(-1)[flat]
     else:
         blk = op
-    lane = torch.arange(LANES, device=dev)
     part = tile_part.long()[:, None, None]
-    gx = xt[part, blk.long(), lane, h.long()]        # x at gather slots
-    routed = torch.gather(gx, 2, src.long())         # crossbar by src
-    prod = v * routed
+    off = ((part * CT + blk.long()) * 128 + src) * LANES + (w & 0x7F).long()
+    return v, off
+
+
+def _accumulate_runs(prod, run_start, run_end) -> torch.Tensor:
+    """Each block's sum of its tiles' (S, 128) terms, in stream order:
+    the (n_blocks*S, 128) accumulator."""
+    _, S, _ = prod.shape
     n_blocks = run_start.shape[0]
-    acc = torch.zeros(n_blocks, S, LANES, dtype=torch.float32, device=dev)
+    acc = torch.zeros(n_blocks, S, LANES, dtype=torch.float32,
+                      device=prod.device)
     lengths = (run_end - run_start).long()
     starts = run_start.long()
     for k in range(int(lengths.max()) if n_blocks else 0):
         live = torch.nonzero(lengths > k).squeeze(1)
         acc[live] = acc[live] + prod[starts[live] + k]
     return acc.reshape(n_blocks * S, LANES)
+
+
+def spmv_tiles_plain(vals, idxT, tile_part, cmap, run_start, run_end, xt,
+                     cfg: SpmvConfig) -> torch.Tensor:
+    """Plain PyTorch version of the SpMV kernel (``_tile_body`` for fp32
+    plus_times over the stream).
+
+    Returns the (n_blocks*S, 128) accumulator.  Each block sums its tiles
+    in stream order, multiply and add rounded separately, as the kernel
+    does."""
+    v, off = route_plain(vals, idxT, tile_part, cmap, cfg, xt.shape[1])
+    return _accumulate_runs(v * xt.reshape(-1)[off], run_start, run_end)
+
+
+def gradstream_tiles_plain(vals, idxT, mask, tile_part, tile_block, cmap,
+                           g_acc, xt, cfg: SpmvConfig) -> torch.Tensor:
+    """Plain PyTorch version of the gradient-stream kernel
+    (``_gradstream_kernel``): ``out[t, s, l] = g_acc[block[t]*S + s, l] *
+    routed[t, s, l] * mask[t, s, l]``, the two products rounded in that
+    order.  ``vals`` is read only for the stolen src bits."""
+    _, off = route_plain(vals, idxT, tile_part, cmap, cfg, xt.shape[1])
+    S = vals.shape[1]
+    gb = g_acc.reshape(-1, S, LANES)[tile_block.long()]
+    return gb * xt.reshape(-1)[off] * mask
+
+
+def spmm_tiles_plain(vals, idxT, tile_part, cmap, run_start, run_end, xt,
+                     cfg: SpmvConfig) -> torch.Tensor:
+    """Plain PyTorch version of the SpMM kernel (``_resident_spmm_kernel``
+    for fp32 plus_times): ``xt`` is (n_parts, F, CT, 128, 128); returns the
+    (F, n_blocks*S, 128) accumulators.  The routing is decoded once and
+    the features run one after another, each summed in stream order."""
+    v, off = route_plain(vals, idxT, tile_part, cmap, cfg, xt.shape[2])
+    return torch.stack([
+        _accumulate_runs(v * xt[:, f].reshape(-1)[off], run_start, run_end)
+        for f in range(xt.shape[1])])
+
+
+def _check_operands(name, vals, checks) -> None:
+    """Raise ``ValueError`` unless vals is (T, S, 128) with S % 128 == 0
+    and every (tensor, dtype, shape) of ``checks`` is on vals's device,
+    of that dtype and shape, and contiguous."""
+    if vals.dim() != 3 or vals.shape[2] != LANES or vals.shape[1] % 128:
+        raise ValueError(f"{name}: vals must be (T, S, {LANES}) with "
+                         "S % 128 == 0")
+    for t, dtype, shape in [(vals, torch.float32, vals.shape)] + checks:
+        if t.device != vals.device:
+            raise ValueError(f"{name}: operand on {t.device}, vals on "
+                             f"{vals.device}")
+        if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: operand {tuple(t.shape)} {t.dtype}, "
+                             f"expected {tuple(shape)} {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} operands must be contiguous")
+
+
+def _stream_checks(vals, idxT, tile_part, cmap, cfg: SpmvConfig):
+    T, S, _ = vals.shape
+    checks = [(idxT, torch.int16 if cfg.idx16 else torch.int32,
+               (T, S, LANES)),
+              (tile_part, torch.int32, (T,))]
+    if cfg.block_major:
+        checks.append((cmap, torch.int32, (T, S // 128,
+                                           cfg.classes_per_group)))
+    return checks
+
+
+def _device_of(name, vals) -> str:
+    """"cpu" for the plain version, "cuda" for the kernel; raise for any
+    other device."""
+    if vals.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no {name} kernel for {vals.device}")
+    return vals.device.type
 
 
 def wavepack_spmv(vals, idxT, tile_part, cmap, run_start, run_end, xt,
@@ -156,42 +256,93 @@ def wavepack_spmv(vals, idxT, tile_part, cmap, run_start, run_end, xt,
     range (``SpmvOperator`` checks both on the host when it is built);
     this wrapper checks device, dtype, shape and contiguity."""
     check_supported(cfg)
-    if vals.device.type == "cpu":
+    if _device_of("wavepack_spmv", vals) == "cpu":
         return spmv_tiles_plain(vals, idxT, tile_part, cmap, run_start,
                                 run_end, xt, cfg)
-    if vals.device.type != "cuda":
-        raise ValueError(f"no wavepack_spmv kernel for {vals.device}")
-    T, S, lanes = vals.shape
-    G, K = S // 128, cfg.classes_per_group
-    idx_dtype = torch.int16 if cfg.idx16 else torch.int32
-    n_parts = xt.shape[0]
-    checks = [
-        (vals, torch.float32, (T, S, LANES)),
-        (idxT, idx_dtype, (T, S, LANES)),
-        (tile_part, torch.int32, (T,)),
+    if run_start.dim() != 1:
+        raise ValueError("wavepack_spmv: one run per block")
+    _check_operands("wavepack_spmv", vals, _stream_checks(
+        vals, idxT, tile_part, cmap, cfg) + [
         (run_start, torch.int32, run_start.shape),
         (run_end, torch.int32, run_start.shape),
-        (xt, torch.float32, (n_parts, cfg.total_blocks, 128, 128)),
-    ]
-    if cfg.block_major:
-        checks.append((cmap, torch.int32, (T, G, K)))
-    if lanes != LANES or S % 128 or run_start.dim() != 1:
-        raise ValueError(f"vals must be (T, S, {LANES}) with S % 128 == 0 "
-                         "and one run per block")
-    for t, dtype, shape in checks:
-        if t.device != vals.device:
-            raise ValueError(f"operand on {t.device}, vals on {vals.device}")
-        if t.dtype != dtype or tuple(t.shape) != tuple(shape):
-            raise ValueError(f"operand {tuple(t.shape)} {t.dtype}, "
-                             f"expected {tuple(shape)} {dtype}")
-        if not t.is_contiguous():
-            raise ValueError("wavepack_spmv operands must be contiguous")
-    out = torch.empty(run_start.shape[0] * S, LANES, dtype=torch.float32,
-                      device=vals.device)
+        (xt, torch.float32, (xt.shape[0], cfg.total_blocks, 128, 128))])
+    out = torch.empty(run_start.shape[0] * vals.shape[1], LANES,
+                      dtype=torch.float32, device=vals.device)
     _kernels.launch_wavepack_spmv(
         vals, idxT, tile_part, cmap if cfg.block_major else None,
         run_start, run_end, xt, out, steal=cfg.steal_mantissa,
-        block_major=cfg.block_major, n_ops=_n_ops(cfg), K=K)
+        block_major=cfg.block_major, n_ops=_n_ops(cfg),
+        K=cfg.classes_per_group)
+    return out
+
+
+def wavepack_gradstream(vals, idxT, mask, tile_part, tile_block, cmap,
+                        g_acc, xt, cfg: SpmvConfig) -> torch.Tensor:
+    """dL/dvals in the stream layout (T, S, 128): ``g_acc`` is the output
+    cotangent broadcast to the (n_blocks*S, 128) accumulator geometry
+    (``ops/train_stream.bcast_to_acc``), ``mask`` the 0/1 real-slot
+    stream, ``xt`` the bank blocks of the forward's x.
+
+    On CUDA tensors this launches ``csrc/wavepack_gradstream.cu``; on CPU
+    tensors it runs :func:`gradstream_tiles_plain`.  The kernel trusts
+    block, partition and class ids to be in range; this wrapper checks
+    device, dtype, shape and contiguity."""
+    check_supported(cfg)
+    if _device_of("wavepack_gradstream", vals) == "cpu":
+        return gradstream_tiles_plain(vals, idxT, mask, tile_part,
+                                      tile_block, cmap, g_acc, xt, cfg)
+    T, S, _ = vals.shape
+    if g_acc.dim() != 2 or g_acc.shape[0] % max(S, 1):
+        raise ValueError("wavepack_gradstream: g_acc must be "
+                         "(n_blocks*S, 128)")
+    _check_operands("wavepack_gradstream", vals, _stream_checks(
+        vals, idxT, tile_part, cmap, cfg) + [
+        (mask, torch.float32, (T, S, LANES)),
+        (tile_block, torch.int32, (T,)),
+        (g_acc, torch.float32, (g_acc.shape[0], LANES)),
+        (xt, torch.float32, (xt.shape[0], cfg.total_blocks, 128, 128))])
+    out = torch.empty_like(vals)
+    if T:
+        _kernels.launch_wavepack_gradstream(
+            vals, idxT, mask, tile_part, tile_block,
+            cmap if cfg.block_major else None, g_acc, xt, out,
+            steal=cfg.steal_mantissa, block_major=cfg.block_major,
+            n_ops=_n_ops(cfg), K=cfg.classes_per_group)
+    return out
+
+
+def wavepack_spmm(vals, idxT, tile_part, cmap, run_start, run_end, xt,
+                  cfg: SpmvConfig) -> torch.Tensor:
+    """The tile stream -> the (F, n_blocks*S, 128) accumulators of F
+    feature columns, ``xt`` the (n_parts, F, CT, 128, 128) bank blocks of
+    :func:`build_xt_multi` with 1 <= F <= ``SPMM_MAX_F``.
+
+    On CUDA tensors this launches ``csrc/wavepack_spmv.cu`` (the SpMV
+    kernel's body with F accumulators); on CPU tensors it runs
+    :func:`spmm_tiles_plain`.  The operand contract is
+    :func:`wavepack_spmv`'s."""
+    check_supported(cfg)
+    if _device_of("wavepack_spmm", vals) == "cpu":
+        return spmm_tiles_plain(vals, idxT, tile_part, cmap, run_start,
+                                run_end, xt, cfg)
+    if run_start.dim() != 1 or xt.dim() != 5 or not (
+            1 <= xt.shape[1] <= SPMM_MAX_F):
+        raise ValueError("wavepack_spmm: one run per block and an xt of "
+                         f"(n_parts, F, CT, 128, 128), 1 <= F <= "
+                         f"{SPMM_MAX_F}")
+    n_parts, F = xt.shape[:2]
+    _check_operands("wavepack_spmm", vals, _stream_checks(
+        vals, idxT, tile_part, cmap, cfg) + [
+        (run_start, torch.int32, run_start.shape),
+        (run_end, torch.int32, run_start.shape),
+        (xt, torch.float32, (n_parts, F, cfg.total_blocks, 128, 128))])
+    out = torch.empty(F, run_start.shape[0] * vals.shape[1], LANES,
+                      dtype=torch.float32, device=vals.device)
+    _kernels.launch_wavepack_spmm(
+        vals, idxT, tile_part, cmap if cfg.block_major else None,
+        run_start, run_end, xt, out, steal=cfg.steal_mantissa,
+        block_major=cfg.block_major, n_ops=_n_ops(cfg),
+        K=cfg.classes_per_group)
     return out
 
 
@@ -205,7 +356,7 @@ def stripe_fold(acc: torch.Tensor, cfg: SpmvConfig,
 
 
 class SpmvOperator(torch.nn.Module):
-    """Device-resident packed matrix + SpMV (the port of
+    """Device-resident packed matrix + SpMV and SpMM (the port of
     ``hisparse_tpu.ops.spmv.SpmvOperator``).
 
     Construct once from a :class:`Wavepack` on an explicit device, then
@@ -213,7 +364,8 @@ class SpmvOperator(torch.nn.Module):
     order as a tensor on the operator's device; ``renamed=True`` returns
     the packed row order.  With a pack ``col_order``, x is given in
     natural column order and permuted on the device (``permute_x=False``
-    when the caller already feeds packed-order x)."""
+    when the caller already feeds packed-order x).  ``matmul(X)`` is the
+    multi-vector form."""
 
     def __init__(self, wp: Wavepack, device, permute_x: bool = True):
         super().__init__()
@@ -245,6 +397,7 @@ class SpmvOperator(torch.nn.Module):
         self.register_buffer(
             "idxT", buf(wp.idxT, np.int16 if cfg.idx16 else np.int32))
         self.register_buffer("tile_part", buf(part, np.int32))
+        self.register_buffer("tile_block", buf(wp.tile_block, np.int32))
         self.register_buffer(
             "class_map", buf(cmap) if cmap is not None else None)
         self.register_buffer("run_start", buf(start))
@@ -255,11 +408,14 @@ class SpmvOperator(torch.nn.Module):
             buf(wp.col_order, np.int64)
             if permute_x and wp.col_order is not None else None)
 
-    def stream_args(self, x: torch.Tensor):
-        """The operands of :func:`wavepack_spmv` for packed-order x."""
+    def stream_args(self, x: torch.Tensor, vals=None):
+        """The operands of :func:`wavepack_spmv` for packed-order x, with
+        ``vals`` (a stream of the pack's shape) in place of the stored
+        values if given."""
         xt = build_xt(x, self.cfg, self.wp.n_parts)
-        return (self.vals, self.idxT, self.tile_part, self.class_map,
-                self.run_start, self.run_end, xt)
+        return (self.vals if vals is None else vals, self.idxT,
+                self.tile_part, self.class_map, self.run_start, self.run_end,
+                xt)
 
     def renamed_y(self, acc: torch.Tensor) -> torch.Tensor:
         """Accumulator -> y in packed (renamed) row order."""
@@ -269,25 +425,59 @@ class SpmvOperator(torch.nn.Module):
         """Renamed -> natural-row-order y on the device: one ``index_add_``
         over the stored perm sums hub-split partials (padding rows map to
         ``num_rows`` and are dropped).  On CUDA the partials of one row add
-        in no fixed order."""
+        in no fixed order.  A (F, renamed) input gives (F, num_rows)."""
         n = self.wp.num_rows
-        out = torch.zeros(n + 1, dtype=y_renamed.dtype,
-                          device=y_renamed.device)
-        out.index_add_(0, self.perm, y_renamed)
-        return out[:n]
+        out = torch.zeros(y_renamed.shape[:-1] + (n + 1,),
+                          dtype=y_renamed.dtype, device=y_renamed.device)
+        out.index_add_(-1, self.perm, y_renamed)
+        return out[..., :n]
 
-    def forward(self, x, renamed: bool = False) -> torch.Tensor:
+    def forward(self, x, renamed: bool = False, vals=None) -> torch.Tensor:
+        """y = A x; ``vals`` (a stream of the pack's shape) replaces the
+        stored values for this call, as the training paths do."""
         x = torch.as_tensor(x, device=self.device)
         if x.shape != (self.wp.num_cols,):
             raise ValueError(f"x has shape {tuple(x.shape)}, expected "
                              f"({self.wp.num_cols},)")
         if self.col_order is not None:
             x = x[self.col_order]
-        acc = wavepack_spmv(*self.stream_args(x), self.cfg)
+        acc = wavepack_spmv(*self.stream_args(x, vals), self.cfg)
         y = self.renamed_y(acc)
         return y if renamed else self.unpack_device(y)
+
+    def matmul(self, X, renamed: bool = False) -> torch.Tensor:
+        """Multi-vector SpMM ``Y = A @ X`` through the packed stream
+        (X: (num_cols, F) features, natural column order; returns
+        (num_rows, F), or (F, renamed rows) with ``renamed=True``).  Each
+        launch takes up to ``SPMM_MAX_F`` features and streams the matrix
+        once for all of them."""
+        X = torch.as_tensor(X, device=self.device)
+        if X.dim() != 2 or X.shape[0] != self.wp.num_cols or X.shape[1] < 1:
+            raise ValueError(f"matmul takes (num_cols, F) features with "
+                             f"num_cols = {self.wp.num_cols}, got "
+                             f"{tuple(X.shape)}")
+        if self.col_order is not None:
+            X = X[self.col_order]
+        outs = []
+        for f0 in range(0, X.shape[1], SPMM_MAX_F):
+            xt = build_xt_multi(X[:, f0:f0 + SPMM_MAX_F], self.cfg,
+                                self.wp.n_parts)
+            acc = wavepack_spmm(self.vals, self.idxT, self.tile_part,
+                                self.class_map, self.run_start,
+                                self.run_end, xt, self.cfg)
+            fc = acc.shape[0]
+            outs.append(stripe_fold(acc.reshape(-1, LANES), self.cfg,
+                                    fc * self.wp.n_blocks).reshape(fc, -1))
+        y_ren = torch.cat(outs)
+        return y_ren if renamed else self.unpack_device(y_ren).T
 
 
 def spmv(wp: Wavepack, x, device) -> torch.Tensor:
     """One-shot SpMV y = A @ x from a packed matrix."""
     return SpmvOperator(wp, device=device)(x)
+
+
+def spmm(wp: Wavepack, X, device) -> torch.Tensor:
+    """One-shot SpMM Y = A @ X (X: (num_cols, F)) from a packed matrix;
+    see :meth:`SpmvOperator.matmul`."""
+    return SpmvOperator(wp, device=device).matmul(X)

@@ -2,8 +2,11 @@
 
 ``device_time_ms`` replaces ``hisparse_tpu/utils/bench.device_loop_time``
 for the port: each timed call sits between its own pair of CUDA events on
-the current stream, after warm-up calls, and the median is returned.  It
-needs a CUDA device and raises without one; a CPU run has no device time.
+the current stream, after warm-up calls, and the median is returned;
+``queued=True`` keeps the host's enqueue time out of a kernel's time.
+``profile_breakdown`` splits a call's device time by op under
+``torch.profiler`` and gives its device idle share.  Both need a CUDA
+device and raise without one; a CPU run has no device time.
 
 GOPS = 2*nnz/t and stream GB/s = stream_bytes/t are the reference's
 definitions (sw/benchmark.cpp:312-314, quoted in BASELINE.md).
@@ -100,13 +103,26 @@ def family_case(fam):
 
 
 def device_time_ms(fn: Callable[[], object], reps: int = 20,
-                   warmup: int = 3) -> float:
-    """Median device milliseconds of ``fn()`` over ``reps`` timed calls."""
+                   warmup: int = 3, queued: bool = False) -> float:
+    """Median device milliseconds of ``fn()`` over ``reps`` timed calls.
+
+    By default each pair of events also takes in any time the device
+    waits for the host to enqueue ``fn``'s work, which a caller of a whole
+    forward or training step waits for too.  ``queued=True`` times the
+    device work alone, for one kernel launch whose host enqueue (operand
+    checks, ctypes) may outlast it: a device sleep holds the stream while
+    the host enqueues every timed call.  ``fn`` must not synchronise
+    then; a hold that ends before the last call is enqueued raises."""
     if not torch.cuda.is_available():
         raise RuntimeError("device_time_ms needs a CUDA device")
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    if queued:
+        # about 1 ms a call at the H100's 1.98 GHz boost clock
+        torch.cuda._sleep(2_000_000 * (reps + 1))
+        held = torch.cuda.Event()
+        held.record()
     pairs = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -115,8 +131,46 @@ def device_time_ms(fn: Callable[[], object], reps: int = 20,
         fn()
         stop.record()
         pairs.append((start, stop))
+    if queued and held.query():
+        raise RuntimeError("device_time_ms: the device ran dry before the "
+                           "last timed call was enqueued")
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def profile_breakdown(fn: Callable[[], object], steps: int = 10,
+                      warmup: int = 3) -> dict:
+    """Where the device time of ``fn()`` goes.
+
+    ``ms`` is ``fn``'s event-timed median without the profiler
+    (:func:`device_time_ms`).  Then ``torch.profiler`` traces ``steps``
+    back-to-back calls; every device activity (kernel, memcpy, memset) is
+    summed by name.  Returns ``ms``, ``busy_us`` (device µs per call),
+    ``idle_share`` = 1 - busy / ms, the share of the unprofiled call in
+    which the device runs nothing, and ``ops``: ``(µs per call, launches
+    per call, name)`` rows, largest first.  Raises if the trace holds no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+    ms = device_time_ms(fn, reps=steps, warmup=warmup)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    busy = sum(us for us, _ in by_name.values()) / steps
+    if busy <= 0.0:
+        raise RuntimeError("profile_breakdown: the trace holds no device "
+                           "time")
+    ops = sorted(((us / steps, n / steps, name)
+                  for name, (us, n) in by_name.items()), reverse=True)
+    return {"ms": ms, "busy_us": busy,
+            "idle_share": max(0.0, 1.0 - busy / (ms * 1e3)), "ops": ops}
 
 
 def gops(nnz: int, ms: float) -> float:

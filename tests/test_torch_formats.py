@@ -119,11 +119,32 @@ def test_col_order_pack_matches_reference():
 
 
 def test_port_imports_no_jax():
-    """The port's modules import neither jax nor hisparse_tpu."""
+    """The port's modules and chip_smoke.py import neither jax nor
+    hisparse_tpu: no import statement names them, and importing every
+    module of the port in a fresh interpreter loads neither."""
     import pathlib
     import re
+    import subprocess
+    import sys
     pkg = pathlib.Path(hp.__file__).parent
+    root = pkg.parent
+    files = sorted(pkg.rglob("*.py"))
+    names = {str(p.relative_to(pkg)) for p in files}
+    assert {"ops/spmv.py", "ops/autodiff.py", "ops/train_stream.py",
+            "models/gnn.py", "interop.py"} <= names
     pat = re.compile(r"^\s*(import|from)\s+(jax|hisparse_tpu)(\.|\s|$)",
                      re.M)
-    bad = [str(p) for p in pkg.rglob("*.py") if pat.search(p.read_text())]
+    bad = [str(p) for p in files + [root / "chip_smoke.py"]
+           if pat.search(p.read_text())]
     assert bad == []
+    mods = [".".join(("hisparse_tpu_torch",) + p.relative_to(pkg).with_suffix(
+        "").parts).removesuffix(".__init__") for p in files]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r} + ['chip_smoke']:\n"
+            "    importlib.import_module(m)\n"
+            "print(sorted(k for k in sys.modules\n"
+            "             if k.split('.')[0] in ('jax', 'hisparse_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"

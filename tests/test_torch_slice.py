@@ -11,6 +11,21 @@ through ``hisparse_tpu.SpmvOperator`` in interpret mode and through
 ``hisparse_tpu_torch.SpmvOperator(device="cpu")``.  Tolerances as in
 tests/test_torch_spmv.py: 1e-6 against the interpret-mode reference, 1e-4
 against ``spmv_f64``.
+
+The training slice, ``test_training_slice_matches_reference``, cuts the
+transformer-70 stand-in of the suite's training row (bench.py,
+``diffspmv_tracking_row``: uniform_sparse_csr(512, 33288, 30% density,
+seed=70) at sublanes=512, bank_blocks=1, stripes=4 for A and stripes=512
+for A^T, steal_mantissa, idx16, split_max=None) to 256 x 2048 at the same
+density and sublanes=128 (stripes=4 for A, 128 for A^T).  Both packages
+take 3 SGD steps of 0.5 * |A x - y_t|^2 on the stream-layout parameters.
+Each step, y is within 1e-6 of the JAX package's, relative to
+max(max|y|, 1); both packages then take the JAX package's residual as the
+cotangent, so that the last-bit differences of y (the order of the fp32
+sums) do not move the steal_mantissa truncation of the updated values.
+After each step the port's vA and vT are bit-equal to the JAX package's
+(read through ``tile_src``): the gradient streams and the update are
+elementwise and rounded alike.
 """
 import dataclasses
 import functools
@@ -22,6 +37,8 @@ import torch
 import hisparse_tpu as ht
 import hisparse_tpu_torch as hp
 from hisparse_tpu.ops.golden import spmv_f64
+from hisparse_tpu.ops.train_stream import StreamDiffSpmv as RefStream
+from hisparse_tpu_torch.interop import stream_from_jax
 
 CFG = dict(sublanes=256, bank_blocks=8, stripes=128, block_major=True,
            classes_per_group=2, steal_mantissa=True, idx16=True,
@@ -66,3 +83,52 @@ def test_slice_matches_reference(source, tmp_path):
     assert _err(y, spmv_f64(m_r, x)) <= 1e-4
     y_renamed = op(torch.from_numpy(x), renamed=True)
     assert _err(y_renamed, y_ref_renamed) <= 1e-6
+
+
+TRAIN_CFG = dict(sublanes=128, bank_blocks=1, stripes=4,
+                 steal_mantissa=True, idx16=True, two_choice=False)
+TRAIN_CFG_T = dict(TRAIN_CFG, stripes=128)
+
+
+def test_training_slice_matches_reference():
+    import jax
+    import jax.numpy as jnp
+    args = (256, 2048, int(2048 * 0.30))
+    ref = RefStream(ht.uniform_sparse_csr(*args, seed=70),
+                    ht.SpmvConfig(**TRAIN_CFG), ht.SpmvConfig(**TRAIN_CFG_T),
+                    interpret=True, split_max=None)
+    sd = hp.StreamDiffSpmv(hp.uniform_sparse_csr(*args, seed=70),
+                           hp.SpmvConfig(**TRAIN_CFG),
+                           hp.SpmvConfig(**TRAIN_CFG_T), device="cpu",
+                           split_max=None)
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal(sd.num_cols).astype(np.float32)
+    y_t = rng.standard_normal(sd.num_rows).astype(np.float32)
+    lr = 1e-3
+    f, aux = ref.fn()
+
+    def ref_loss(vA, vT):
+        r = f(vA, vT, jnp.asarray(x), aux) - jnp.asarray(y_t)
+        return 0.5 * jnp.vdot(r, r)
+
+    vjp = jax.jit(lambda vA, vT, g: jax.vjp(
+        lambda a, b: f(a, b, jnp.asarray(x), aux), vA, vT)[1](g))
+    vA, vT = ref.vA0, ref.vT0
+    losses = []
+    for _ in range(3):
+        y_ref = np.asarray(f(vA, vT, jnp.asarray(x), aux))
+        y = sd(torch.from_numpy(x))
+        assert _err(y.detach(), y_ref) <= 1e-6
+        # one cotangent for both packages: the JAX package's residual
+        g = y_ref - y_t
+        losses.append(0.5 * float(np.dot(g, g)))
+        vA, vT = ref.sgd_step(vA, vT, *vjp(vA, vT, jnp.asarray(g)), lr)
+        sd.zero_grad()
+        y.backward(torch.from_numpy(g))
+        sd.sgd_step(lr)
+        np.testing.assert_array_equal(
+            sd.vA.detach().numpy(), stream_from_jax(vA, ref.d.op.tile_src))
+        np.testing.assert_array_equal(
+            sd.vT.detach().numpy(), stream_from_jax(vT, ref.d.opT.tile_src))
+        np.testing.assert_array_equal(sd.values(), sd.values_T())
+    assert losses[-1] < losses[0]
