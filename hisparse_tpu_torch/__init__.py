@@ -1,12 +1,15 @@
 """hisparse_tpu_torch — the PyTorch + CUDA port of hisparse_tpu.
 
 The wavepack format, its packer, the packed-stream SpMV main path
-(``pack`` -> ``SpmvOperator`` -> natural-order y) and SpMM, and the
+(``pack`` -> ``SpmvOperator`` -> natural-order y) in the plus_times,
+min_plus and max_times semirings, SpMM and the masked (SpMSpV) call, the
 training paths (``DiffSpmv``, ``StreamDiffSpmv``, ``DiffSpmm``, ``GCN``)
-for an NVIDIA H100.  The host layers are copies of the JAX package's
-(numpy and the native C++ scheduler); the TPU's Pallas kernels on these
-paths become CUDA C++ kernels (``csrc/wavepack_spmv.cu``, SpMV and
-SpMM, and ``csrc/wavepack_gradstream.cu``).  This package imports
+and the graph apps (``PageRank``, ``SSSP``, ``BFS``) for an NVIDIA H100.
+The host layers are copies of the JAX package's (numpy and the native C++
+scheduler); the TPU's Pallas kernels on these paths become CUDA C++
+kernels (``csrc/wavepack_spmv.cu``, SpMV, SpMM and masked SpMV, and
+``csrc/wavepack_gradstream.cu``).  Entry points run on the card unless
+the caller asks for the CPU (``device="cpu"``).  This package imports
 neither JAX nor ``hisparse_tpu``.
 """
 from .config import LANES, SpmvConfig, GRAPH_CONFIG, NN_CONFIG
@@ -22,6 +25,8 @@ from .ops.spmv import SpmvOperator, spmv, spmm
 from .ops.autodiff import DiffSpmv
 from .ops.train_stream import StreamDiffSpmv
 from .models.gnn import DiffSpmm, GCN, gcn_normalize
+from .models.apps import (PageRank, SSSP, BFS, pagerank, pagerank_reference,
+                          sssp_reference)
 
 __all__ = [
     "LANES", "SpmvConfig", "GRAPH_CONFIG", "NN_CONFIG",
@@ -31,6 +36,7 @@ __all__ = [
     "decode", "save_wavepack", "load_wavepack", "wavepack_from_arrays",
     "stream_from_jax", "gcn_params_from_jax",
     "SpmvOperator", "spmv", "spmm", "DiffSpmv", "StreamDiffSpmv",
-    "DiffSpmm", "GCN", "gcn_normalize",
+    "DiffSpmm", "GCN", "gcn_normalize", "PageRank", "SSSP", "BFS",
+    "pagerank", "pagerank_reference", "sssp_reference",
 ]
-__version__ = "0.2.0"
+__version__ = "0.3.0"

@@ -86,19 +86,24 @@ __device__ __forceinline__ int route(uint32_t& vbits,
 
 // Calls f(IdxT{}, bool_constant<steal>{}, bool_constant<block_major>{})
 // for the run-time pack flags, so each kernel instantiates its template
-// for the eight kinds of pack in one place.
+// for the six kinds of pack that config.py allows, in one place; idx16
+// needs steal_mantissa (an idx16 word has no room for src).  Returns false,
+// calling nothing, for idx16 without steal.
 template <typename F>
-void dispatch(bool idx16, bool steal, bool block_major, F&& f) {
+bool dispatch(bool idx16, bool steal, bool block_major, F&& f) {
   using T = std::true_type;
   using N = std::false_type;
-  auto flags = [&](auto idx) {
-    if (steal && block_major) f(idx, T{}, T{});
-    else if (steal) f(idx, T{}, N{});
-    else if (block_major) f(idx, N{}, T{});
-    else f(idx, N{}, N{});
-  };
-  if (idx16) flags(int16_t{});
-  else flags(int32_t{});
+  if (idx16) {
+    if (!steal) return false;
+    if (block_major) f(int16_t{}, T{}, T{});
+    else f(int16_t{}, T{}, N{});
+    return true;
+  }
+  if (steal && block_major) f(int32_t{}, T{}, T{});
+  else if (steal) f(int32_t{}, T{}, N{});
+  else if (block_major) f(int32_t{}, N{}, T{});
+  else f(int32_t{}, N{}, N{});
+  return true;
 }
 
 }  // namespace wavepack

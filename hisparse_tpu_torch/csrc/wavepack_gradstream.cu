@@ -112,10 +112,12 @@ extern "C" int wavepack_gradstream_f32(const void* vals, const void* idxT,
                  S, n_ops, K, CT};
   const dim3 grid(static_cast<unsigned>(T) * (S / kRows));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dispatch(idx16, steal, block_major, [&](auto idx, auto st_, auto bm) {
+  const bool ok = dispatch(idx16, steal, block_major,
+                           [&](auto idx, auto st_, auto bm) {
     wavepack_gradstream_kernel<decltype(idx), decltype(st_)::value,
                                decltype(bm)::value>
         <<<grid, kThreads, 0, st>>>(p);
   });
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

@@ -103,7 +103,7 @@ class DiffSpmm(torch.nn.Module):
     whatever the column order of the packs."""
 
     def __init__(self, m: CSRMatrix, config: SpmvConfig | None = None,
-                 configT: SpmvConfig | None = None, *, device,
+                 configT: SpmvConfig | None = None, *, device="cuda",
                  split_max="auto", col_order=None, col_orderT=None,
                  **pack_kw):
         super().__init__()
@@ -138,7 +138,7 @@ class GCN(torch.nn.Module):
     ``pack_kw`` (``col_order``, ``bm_win``, ...) goes to both packs."""
 
     def __init__(self, adj: CSRMatrix, dims, config: SpmvConfig | None = None,
-                 configT: SpmvConfig | None = None, *, device,
+                 configT: SpmvConfig | None = None, *, device="cuda",
                  normalize: bool = True, split_max="auto", seed: int = 0,
                  col_order=None, **pack_kw):
         super().__init__()

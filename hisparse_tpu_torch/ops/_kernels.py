@@ -13,7 +13,7 @@ plain versions run.
 Each kernel has its own launch counter, raised by one per launch made
 through its ``launch_*`` function, so a run can show that its main path
 went through the kernel: ``launches`` (the wavepack SpMV),
-``gradstream_launches`` and ``spmm_launches``.
+``gradstream_launches``, ``spmm_launches`` and ``masked_launches``.
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -32,30 +33,38 @@ _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
 # one shared library per csrc/<name>.cu
 LIBRARIES = ("wavepack_spmv", "wavepack_gradstream")
+# --split-compile=0 optimises the kernels' template instantiations (42 in
+# wavepack_spmv.cu) on every core
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "--split-compile=0"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# each kernel's library, C entry point and argument types; SpMV and SpMM
-# are one kernel body of wavepack_spmv.cu at one and at F features
+# each kernel's library, C entry point and argument types; SpMV, SpMM and
+# the masked SpMV are one kernel body of wavepack_spmv.cu
 _ENTRY = {
     "wavepack_spmv": ("wavepack_spmv", "wavepack_spmv_f32",
-                      [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                      [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _P]),
     "wavepack_gradstream": ("wavepack_gradstream", "wavepack_gradstream_f32",
                             [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                              _P, _I, _I, _I, _I, _I, _P]),
     "wavepack_spmm": ("wavepack_spmv", "wavepack_spmm_f32",
-                      [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                      [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _P]),
+    "wavepack_spmv_masked": ("wavepack_spmv", "wavepack_spmv_masked_f32",
+                             [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                              _P, _P, _I, _I, _I, _I, _I, _P]),
 }
 KERNELS = tuple(_ENTRY)
+# the kernels' semiring argument (csrc/wavepack_spmv.cu)
+SEMIRINGS = {"plus_times": 0, "min_plus": 1, "max_times": 2}
 
 _lock = threading.Lock()
 _fns = None
 launches = 0
 gradstream_launches = 0
 spmm_launches = 0
+masked_launches = 0
 
 
 def _nvcc() -> str:
@@ -105,6 +114,38 @@ def _build(out_dir: str) -> None:
         raise RuntimeError("\n".join(failed))
 
 
+def register_counts() -> dict:
+    """Registers per thread of every compiled kernel, by mangled name, as
+    ``ptxas -v`` reports them: each library source compiled once more, in
+    parallel, with ``-Xptxas -v`` into a scratch file of the build
+    directory.  Needs nvcc; for the record, not for the kernels' use."""
+    out_dir = build_dir()
+    os.makedirs(out_dir, exist_ok=True)
+    tmps = [os.path.join(out_dir, f"{name}.ptxas.{os.getpid()}.tmp")
+            for name in LIBRARIES]
+    procs = [subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
+         os.path.join(_CSRC, f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, tmp in zip(LIBRARIES, tmps)]
+    counts, kernel = {}, None
+    for name, tmp, proc in zip(LIBRARIES, tmps, procs):
+        log = proc.communicate()[0]
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc -Xptxas -v failed on {name}.cu:\n{log}")
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                kernel = m.group(1)
+            m = re.search(r"Used (\d+) registers", line)
+            if m and kernel:
+                counts[kernel] = int(m.group(1))
+                kernel = None
+    return counts
+
+
 def load() -> dict:
     """Build (if a source changed) and load every kernel; returns the C
     entry points by kernel name."""
@@ -140,20 +181,40 @@ def _ptr(t) -> int | None:
 
 
 def launch_wavepack_spmv(vals, idxT, tile_part, cmap, run_start, run_end,
-                         xt, out, *, steal: bool, block_major: bool,
-                         n_ops: int, K: int) -> None:
+                         xt, out, *, semiring: str, steal: bool,
+                         block_major: bool, n_ops: int, K: int) -> None:
     """Launch the SpMV kernel on the current stream.  The caller has
     checked device, dtype, shape and contiguity
     (ops/spmv.py:wavepack_spmv)."""
     global launches
     rc = load()["wavepack_spmv"](
         vals.data_ptr(), idxT.data_ptr(), int(idxT.dtype == torch.int16),
-        int(steal), int(block_major), tile_part.data_ptr(), _ptr(cmap),
+        int(steal), int(block_major), SEMIRINGS[semiring],
+        tile_part.data_ptr(), _ptr(cmap), run_start.data_ptr(),
+        run_end.data_ptr(), xt.data_ptr(), out.data_ptr(),
+        run_start.shape[0], vals.shape[1], n_ops, K, xt.shape[1],
+        _stream(vals))
+    _check("wavepack_spmv", rc)
+    launches += 1
+
+
+def launch_wavepack_spmv_masked(vals, idxT, tile_ids, tile_part, cmap,
+                                run_start, run_end, xt, out, *,
+                                semiring: str, steal: bool,
+                                block_major: bool, n_ops: int,
+                                K: int) -> None:
+    """Launch the masked SpMV kernel on the current stream (checked by
+    ops/spmv.py:wavepack_spmv_masked); the runs index ``tile_ids``."""
+    global masked_launches
+    rc = load()["wavepack_spmv_masked"](
+        vals.data_ptr(), idxT.data_ptr(), int(idxT.dtype == torch.int16),
+        int(steal), int(block_major), SEMIRINGS[semiring],
+        tile_ids.data_ptr(), tile_part.data_ptr(), _ptr(cmap),
         run_start.data_ptr(), run_end.data_ptr(), xt.data_ptr(),
         out.data_ptr(), run_start.shape[0], vals.shape[1], n_ops, K,
         xt.shape[1], _stream(vals))
-    _check("wavepack_spmv", rc)
-    launches += 1
+    _check("wavepack_spmv_masked", rc)
+    masked_launches += 1
 
 
 def launch_wavepack_gradstream(vals, idxT, mask, tile_part, tile_block,
@@ -174,16 +235,17 @@ def launch_wavepack_gradstream(vals, idxT, mask, tile_part, tile_block,
 
 
 def launch_wavepack_spmm(vals, idxT, tile_part, cmap, run_start, run_end,
-                         xt, out, *, steal: bool, block_major: bool,
-                         n_ops: int, K: int) -> None:
+                         xt, out, *, semiring: str, steal: bool,
+                         block_major: bool, n_ops: int, K: int) -> None:
     """Launch the SpMM kernel on the current stream (checked by
     ops/spmv.py:wavepack_spmm); xt is (n_parts, F, CT, 128, 128)."""
     global spmm_launches
     rc = load()["wavepack_spmm"](
         vals.data_ptr(), idxT.data_ptr(), int(idxT.dtype == torch.int16),
-        int(steal), int(block_major), tile_part.data_ptr(), _ptr(cmap),
-        run_start.data_ptr(), run_end.data_ptr(), xt.data_ptr(),
-        out.data_ptr(), run_start.shape[0], vals.shape[1], n_ops, K,
-        xt.shape[2], xt.shape[1], _stream(vals))
+        int(steal), int(block_major), SEMIRINGS[semiring],
+        tile_part.data_ptr(), _ptr(cmap), run_start.data_ptr(),
+        run_end.data_ptr(), xt.data_ptr(), out.data_ptr(),
+        run_start.shape[0], vals.shape[1], n_ops, K, xt.shape[2],
+        xt.shape[1], _stream(vals))
     _check("wavepack_spmm", rc)
     spmm_launches += 1

@@ -118,7 +118,7 @@ class DiffSpmv(torch.nn.Module):
     ``col_orderT`` and ``pack_kw`` go to their ``pack`` calls."""
 
     def __init__(self, m: CSRMatrix, config: SpmvConfig | None = None,
-                 configT: SpmvConfig | None = None, *, device,
+                 configT: SpmvConfig | None = None, *, device="cuda",
                  split_max="auto", col_order=None, col_orderT=None,
                  **pack_kw):
         super().__init__()

@@ -1,8 +1,9 @@
 """Packed-stream SpMV and SpMM in PyTorch: the port of
 ``hisparse_tpu/ops/spmv.py``'s main path (``SpmvOperator`` ->
 ``_spmv_call`` -> ``_stripe_fold`` -> ``unpack_device``), of its SpMM
-(``SpmvOperator.matmul`` -> ``_spmm_call``) and of its gradient stream
-(``_gradstream_call``).
+(``SpmvOperator.matmul`` -> ``_spmm_call``), of its masked SpMSpV analog
+(``SpmvOperator.masked`` -> ``_spmv_masked_call``) and of its gradient
+stream (``_gradstream_call``).
 
 Per SpMV call, for a dense vector x:
 
@@ -15,18 +16,32 @@ Per SpMV call, for a dense vector x:
                         tensors;
   3. ``stripe_fold``    S/R sublane rows -> R rows per block (renamed y);
   4. ``unpack_device``  renamed y -> natural row order (hub-split partials
-                        summed).
+                        combined).
+
+Each step follows the pack's semiring: plus_times sums products, min_plus
+takes the least v + x, max_times the greatest v * x (natural-order rows
+with no term come out at 0, the JAX package's clamp).  Accumulators start
+at the semiring's identity (0, +inf, -inf), so a row block without tiles
+comes out at the identity, as the JAX resident init and paged fill leave
+it.  min and max propagate a NaN, as ``jnp.minimum`` / ``torch.minimum``
+do.
 
 SpMM runs the same steps for up to 16 feature columns at a time
-(``build_xt_multi``, ``wavepack_spmm`` / ``spmm_tiles_plain``); the
-gradient stream ``wavepack_gradstream`` / ``gradstream_tiles_plain`` gives
-dL/dvals in the pack's stream layout.  The three kernels and their plain
-versions share one routing: ``csrc/route.cuh`` and ``route_plain``.
+(``build_xt_multi``, ``wavepack_spmm`` / ``spmm_tiles_plain``).  The masked
+call (``wavepack_spmv_masked`` / ``spmv_masked_tiles_plain``) walks only
+the tiles ``SpmvOperator.active_tiles`` selects: those whose partition, or
+whose block-major (partition, class) pairs, can touch an active column.
+It selects single tiles where the JAX package selects groups of ``tb``
+tiles; ``_ensure_pad_group``, the power-of-two padding of the selection
+and the ``first`` re-derivation are not ported, as they exist only to
+bound TPU recompiles and to serve the paged index maps.  The gradient
+stream ``wavepack_gradstream`` / ``gradstream_tiles_plain`` gives dL/dvals
+in the pack's stream layout (plus_times only).  The kernels and their
+plain versions share one routing: ``csrc/route.cuh`` and ``route_plain``.
 
-This slice covers fp32 plus_times packs: select-chain and block-major,
-two_choice, steal_mantissa, idx16, any number of column partitions.  bf16
-values, the min_plus / max_times semirings and fixed-point Q8.24 raise
-``NotImplementedError``.
+fp32 packs run: select-chain and block-major, two_choice, steal_mantissa,
+idx16, any number of column partitions, the three semirings.  bf16 values
+and fixed-point Q8.24 raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -38,6 +53,12 @@ from ..formats.wavepack import Wavepack, bank_shift
 from . import _kernels
 
 SPMM_MAX_F = 16              # features per SpMM kernel launch
+# slots the plain versions route at once: they walk a long stream in
+# chunks of tiles (the SSSP pokec pack has 680M slots), so that their int64
+# routing offsets stay near a GB
+PLAIN_CHUNK_SLOTS = 1 << 24
+IDENTITY = {"plus_times": 0.0, "min_plus": float("inf"),
+            "max_times": float("-inf")}
 
 
 def check_supported(cfg: SpmvConfig) -> None:
@@ -45,9 +66,33 @@ def check_supported(cfg: SpmvConfig) -> None:
     if cfg.dtype != "fp32":
         raise NotImplementedError(
             f"dtype {cfg.dtype!r}: only fp32 packs are ported so far")
+
+
+def check_plus_times(cfg: SpmvConfig, what: str) -> None:
+    """Raise ``NotImplementedError`` unless the pack is fp32 plus_times,
+    the only algebra ``what`` is defined for."""
+    check_supported(cfg)
     if cfg.semiring != "plus_times":
         raise NotImplementedError(
-            f"semiring {cfg.semiring!r}: only plus_times is ported so far")
+            f"semiring {cfg.semiring!r}: {what} is plus_times only")
+
+
+def semiring_term(v, x, semiring: str):
+    """The term ``v (x) x`` of each slot, rounded once: ``v + x`` for
+    min_plus, ``v * x`` otherwise."""
+    return v + x if semiring == "min_plus" else v * x
+
+
+def semiring_add(acc, t, semiring: str):
+    """``acc (+) t`` elementwise, as the kernels fold a term: ``acc + t``,
+    ``min(acc, t)`` or ``max(acc, t)``.  min and max take the term where it
+    is smaller (larger) or NaN, so a NaN propagates and a tie keeps
+    ``acc``."""
+    if semiring == "min_plus":
+        return torch.where((t < acc) | torch.isnan(t), t, acc)
+    if semiring == "max_times":
+        return torch.where((t > acc) | torch.isnan(t), t, acc)
+    return acc + t
 
 
 def build_xt(x: torch.Tensor, cfg: SpmvConfig, n_parts: int) -> torch.Tensor:
@@ -157,31 +202,67 @@ def route_plain(vals, idxT, tile_part, cmap, cfg: SpmvConfig, CT: int):
     return v, off
 
 
-def _accumulate_runs(prod, run_start, run_end) -> torch.Tensor:
-    """Each block's sum of its tiles' (S, 128) terms, in stream order:
-    the (n_blocks*S, 128) accumulator."""
-    _, S, _ = prod.shape
+def _accumulate_runs(vals, idxT, tile_part, cmap, run_start, run_end, xts,
+                     cfg: SpmvConfig, tile_ids=None) -> torch.Tensor:
+    """The plain versions' accumulation: each block's semiring sum of its
+    run's terms, in run order, from the semiring's identity.  A run
+    indexes ``tile_ids`` (the masked call) if given, else the stream.
+    ``xts`` holds one (n_parts, CT, 128, 128) XT per feature; returns the
+    (F, n_blocks*S, 128) accumulators.
+
+    The run space is walked in chunks of ``PLAIN_CHUNK_SLOTS`` slots,
+    routed once for all features, the accumulator carried from chunk to
+    chunk, so each slot still folds its terms in run order."""
+    _, S, _ = vals.shape
     n_blocks = run_start.shape[0]
-    acc = torch.zeros(n_blocks, S, LANES, dtype=torch.float32,
-                      device=prod.device)
-    lengths = (run_end - run_start).long()
-    starts = run_start.long()
-    for k in range(int(lengths.max()) if n_blocks else 0):
-        live = torch.nonzero(lengths > k).squeeze(1)
-        acc[live] = acc[live] + prod[starts[live] + k]
-    return acc.reshape(n_blocks * S, LANES)
+    n_runs = vals.shape[0] if tile_ids is None else tile_ids.shape[0]
+    acc = torch.full((len(xts), n_blocks, S, LANES), IDENTITY[cfg.semiring],
+                     dtype=torch.float32, device=vals.device)
+    starts, ends = run_start.long(), run_end.long()
+    step = max(1, PLAIN_CHUNK_SLOTS // (S * LANES))
+    for c0 in range(0, n_runs if n_blocks else 0, step):
+        c1 = min(n_runs, c0 + step)
+        lo = starts.clamp(c0, c1)
+        lengths = ends.clamp(c0, c1) - lo
+        depth = int(lengths.max())
+        if depth == 0:
+            continue
+        tiles = (slice(c0, c1) if tile_ids is None
+                 else tile_ids[c0:c1].long())
+        v, off = route_plain(vals[tiles], idxT[tiles], tile_part[tiles],
+                             None if cmap is None else cmap[tiles], cfg,
+                             xts[0].shape[1])
+        for f, xt in enumerate(xts):
+            term = semiring_term(v, xt.reshape(-1)[off], cfg.semiring)
+            for k in range(depth):
+                live = torch.nonzero(lengths > k).squeeze(1)
+                acc[f, live] = semiring_add(acc[f, live],
+                                            term[lo[live] + (k - c0)],
+                                            cfg.semiring)
+    return acc.reshape(len(xts), n_blocks * S, LANES)
 
 
 def spmv_tiles_plain(vals, idxT, tile_part, cmap, run_start, run_end, xt,
                      cfg: SpmvConfig) -> torch.Tensor:
     """Plain PyTorch version of the SpMV kernel (``_tile_body`` for fp32
-    plus_times over the stream).
+    over the stream).
 
-    Returns the (n_blocks*S, 128) accumulator.  Each block sums its tiles
-    in stream order, multiply and add rounded separately, as the kernel
-    does."""
-    v, off = route_plain(vals, idxT, tile_part, cmap, cfg, xt.shape[1])
-    return _accumulate_runs(v * xt.reshape(-1)[off], run_start, run_end)
+    Returns the (n_blocks*S, 128) accumulator.  Each block folds its tiles
+    in stream order, every operation rounded once, as the kernel does."""
+    check_supported(cfg)
+    return _accumulate_runs(vals, idxT, tile_part, cmap, run_start, run_end,
+                            [xt], cfg)[0]
+
+
+def spmv_masked_tiles_plain(vals, idxT, tile_ids, tile_part, cmap,
+                            run_start, run_end, xt,
+                            cfg: SpmvConfig) -> torch.Tensor:
+    """Plain PyTorch version of the masked SpMV kernel: the SpMV over the
+    tiles ``tile_ids`` (stream order) alone, ``run_start`` / ``run_end``
+    each block's run into ``tile_ids``."""
+    check_supported(cfg)
+    return _accumulate_runs(vals, idxT, tile_part, cmap, run_start, run_end,
+                            [xt], cfg, tile_ids=tile_ids)[0]
 
 
 def gradstream_tiles_plain(vals, idxT, mask, tile_part, tile_block, cmap,
@@ -190,6 +271,7 @@ def gradstream_tiles_plain(vals, idxT, mask, tile_part, tile_block, cmap,
     (``_gradstream_kernel``): ``out[t, s, l] = g_acc[block[t]*S + s, l] *
     routed[t, s, l] * mask[t, s, l]``, the two products rounded in that
     order.  ``vals`` is read only for the stolen src bits."""
+    check_plus_times(cfg, "the gradient stream")
     _, off = route_plain(vals, idxT, tile_part, cmap, cfg, xt.shape[1])
     S = vals.shape[1]
     gb = g_acc.reshape(-1, S, LANES)[tile_block.long()]
@@ -199,13 +281,12 @@ def gradstream_tiles_plain(vals, idxT, mask, tile_part, tile_block, cmap,
 def spmm_tiles_plain(vals, idxT, tile_part, cmap, run_start, run_end, xt,
                      cfg: SpmvConfig) -> torch.Tensor:
     """Plain PyTorch version of the SpMM kernel (``_resident_spmm_kernel``
-    for fp32 plus_times): ``xt`` is (n_parts, F, CT, 128, 128); returns the
-    (F, n_blocks*S, 128) accumulators.  The routing is decoded once and
-    the features run one after another, each summed in stream order."""
-    v, off = route_plain(vals, idxT, tile_part, cmap, cfg, xt.shape[2])
-    return torch.stack([
-        _accumulate_runs(v * xt[:, f].reshape(-1)[off], run_start, run_end)
-        for f in range(xt.shape[1])])
+    for fp32): ``xt`` is (n_parts, F, CT, 128, 128); returns the (F,
+    n_blocks*S, 128) accumulators.  The routing is decoded once and the
+    features run one after another, each folded in stream order."""
+    check_supported(cfg)
+    return _accumulate_runs(vals, idxT, tile_part, cmap, run_start, run_end,
+                            [xt[:, f] for f in range(xt.shape[1])], cfg)
 
 
 def _check_operands(name, vals, checks) -> None:
@@ -245,14 +326,27 @@ def _device_of(name, vals) -> str:
     return vals.device.type
 
 
+def _pack_kw(cfg: SpmvConfig) -> dict:
+    """The pack's flags, as the ``_kernels.launch_*`` functions take
+    them."""
+    return dict(steal=cfg.steal_mantissa, block_major=cfg.block_major,
+                n_ops=_n_ops(cfg), K=cfg.classes_per_group)
+
+
+def _run_checks(run_start, run_end):
+    return [(run_start, torch.int32, run_start.shape),
+            (run_end, torch.int32, run_start.shape)]
+
+
 def wavepack_spmv(vals, idxT, tile_part, cmap, run_start, run_end, xt,
                   cfg: SpmvConfig) -> torch.Tensor:
-    """The tile stream -> the (n_blocks*S, 128) accumulator.
+    """The tile stream -> the (n_blocks*S, 128) accumulator, in the pack's
+    semiring.
 
     On CUDA tensors this launches ``csrc/wavepack_spmv.cu``; on CPU
     tensors it runs :func:`spmv_tiles_plain`.  Blocks without tiles come
-    out at 0, the plus_times identity.  The kernel trusts the values of
-    its operands: runs from :func:`block_runs`, partition and class ids in
+    out at the semiring's identity.  The kernel trusts the values of its
+    operands: runs from :func:`block_runs`, partition and class ids in
     range (``SpmvOperator`` checks both on the host when it is built);
     this wrapper checks device, dtype, shape and contiguity."""
     check_supported(cfg)
@@ -262,17 +356,45 @@ def wavepack_spmv(vals, idxT, tile_part, cmap, run_start, run_end, xt,
     if run_start.dim() != 1:
         raise ValueError("wavepack_spmv: one run per block")
     _check_operands("wavepack_spmv", vals, _stream_checks(
-        vals, idxT, tile_part, cmap, cfg) + [
-        (run_start, torch.int32, run_start.shape),
-        (run_end, torch.int32, run_start.shape),
-        (xt, torch.float32, (xt.shape[0], cfg.total_blocks, 128, 128))])
+        vals, idxT, tile_part, cmap, cfg) + _run_checks(run_start, run_end)
+        + [(xt, torch.float32, (xt.shape[0], cfg.total_blocks, 128, 128))])
     out = torch.empty(run_start.shape[0] * vals.shape[1], LANES,
                       dtype=torch.float32, device=vals.device)
     _kernels.launch_wavepack_spmv(
         vals, idxT, tile_part, cmap if cfg.block_major else None,
-        run_start, run_end, xt, out, steal=cfg.steal_mantissa,
-        block_major=cfg.block_major, n_ops=_n_ops(cfg),
-        K=cfg.classes_per_group)
+        run_start, run_end, xt, out, semiring=cfg.semiring, **_pack_kw(cfg))
+    return out
+
+
+def wavepack_spmv_masked(vals, idxT, tile_ids, tile_part, cmap, run_start,
+                         run_end, xt, cfg: SpmvConfig) -> torch.Tensor:
+    """The tiles ``tile_ids`` of the stream alone -> the (n_blocks*S, 128)
+    accumulator, in the pack's semiring: the masked (SpMSpV) form of
+    :func:`wavepack_spmv`.  ``tile_ids`` (int32, stream order) selects the
+    tiles; ``run_start`` / ``run_end`` give each block's run into
+    ``tile_ids`` (:func:`block_runs` of ``tile_block[tile_ids]``).  Tiles
+    not selected are never read.
+
+    On CUDA tensors this launches ``csrc/wavepack_spmv.cu``'s masked
+    kernel; on CPU tensors it runs :func:`spmv_masked_tiles_plain`.  The
+    kernel trusts tile ids and runs to be in range; this wrapper checks
+    device, dtype, shape and contiguity."""
+    check_supported(cfg)
+    if _device_of("wavepack_spmv_masked", vals) == "cpu":
+        return spmv_masked_tiles_plain(vals, idxT, tile_ids, tile_part,
+                                       cmap, run_start, run_end, xt, cfg)
+    if run_start.dim() != 1 or tile_ids.dim() != 1:
+        raise ValueError("wavepack_spmv_masked: one run per block into a "
+                         "1-D tile_ids")
+    _check_operands("wavepack_spmv_masked", vals, _stream_checks(
+        vals, idxT, tile_part, cmap, cfg) + _run_checks(run_start, run_end)
+        + [(tile_ids, torch.int32, tile_ids.shape),
+           (xt, torch.float32, (xt.shape[0], cfg.total_blocks, 128, 128))])
+    out = torch.empty(run_start.shape[0] * vals.shape[1], LANES,
+                      dtype=torch.float32, device=vals.device)
+    _kernels.launch_wavepack_spmv_masked(
+        vals, idxT, tile_ids, tile_part, cmap if cfg.block_major else None,
+        run_start, run_end, xt, out, semiring=cfg.semiring, **_pack_kw(cfg))
     return out
 
 
@@ -287,7 +409,7 @@ def wavepack_gradstream(vals, idxT, mask, tile_part, tile_block, cmap,
     tensors it runs :func:`gradstream_tiles_plain`.  The kernel trusts
     block, partition and class ids to be in range; this wrapper checks
     device, dtype, shape and contiguity."""
-    check_supported(cfg)
+    check_plus_times(cfg, "the gradient stream")
     if _device_of("wavepack_gradstream", vals) == "cpu":
         return gradstream_tiles_plain(vals, idxT, mask, tile_part,
                                       tile_block, cmap, g_acc, xt, cfg)
@@ -306,8 +428,7 @@ def wavepack_gradstream(vals, idxT, mask, tile_part, tile_block, cmap,
         _kernels.launch_wavepack_gradstream(
             vals, idxT, mask, tile_part, tile_block,
             cmap if cfg.block_major else None, g_acc, xt, out,
-            steal=cfg.steal_mantissa, block_major=cfg.block_major,
-            n_ops=_n_ops(cfg), K=cfg.classes_per_group)
+            **_pack_kw(cfg))
     return out
 
 
@@ -332,42 +453,45 @@ def wavepack_spmm(vals, idxT, tile_part, cmap, run_start, run_end, xt,
                          f"{SPMM_MAX_F}")
     n_parts, F = xt.shape[:2]
     _check_operands("wavepack_spmm", vals, _stream_checks(
-        vals, idxT, tile_part, cmap, cfg) + [
-        (run_start, torch.int32, run_start.shape),
-        (run_end, torch.int32, run_start.shape),
-        (xt, torch.float32, (n_parts, F, cfg.total_blocks, 128, 128))])
+        vals, idxT, tile_part, cmap, cfg) + _run_checks(run_start, run_end)
+        + [(xt, torch.float32, (n_parts, F, cfg.total_blocks, 128, 128))])
     out = torch.empty(F, run_start.shape[0] * vals.shape[1], LANES,
                       dtype=torch.float32, device=vals.device)
     _kernels.launch_wavepack_spmm(
         vals, idxT, tile_part, cmap if cfg.block_major else None,
-        run_start, run_end, xt, out, steal=cfg.steal_mantissa,
-        block_major=cfg.block_major, n_ops=_n_ops(cfg),
-        K=cfg.classes_per_group)
+        run_start, run_end, xt, out, semiring=cfg.semiring, **_pack_kw(cfg))
     return out
 
 
 def stripe_fold(acc: torch.Tensor, cfg: SpmvConfig,
                 n_blocks: int) -> torch.Tensor:
     """(n_blocks*S, 128) accumulator -> (n_blocks, R, 128) rows: the S/R
-    sublanes of stripe sigma sum into row sigma (PE output stage)."""
+    sublanes of stripe sigma fold into row sigma (PE output stage), by
+    sum, min or max as the semiring adds."""
     check_supported(cfg)
     S, R = cfg.sublanes, cfg.stripes
-    return acc.reshape(n_blocks, S // R, R, LANES).sum(dim=1)
+    rows = acc.reshape(n_blocks, S // R, R, LANES)
+    if cfg.semiring == "min_plus":
+        return rows.amin(dim=1)
+    if cfg.semiring == "max_times":
+        return rows.amax(dim=1)
+    return rows.sum(dim=1)
 
 
 class SpmvOperator(torch.nn.Module):
-    """Device-resident packed matrix + SpMV and SpMM (the port of
-    ``hisparse_tpu.ops.spmv.SpmvOperator``).
+    """Device-resident packed matrix + SpMV, SpMM and masked SpMV (the
+    port of ``hisparse_tpu.ops.spmv.SpmvOperator``).
 
-    Construct once from a :class:`Wavepack` on an explicit device, then
-    call with dense vectors.  ``forward(x)`` returns y in natural row
-    order as a tensor on the operator's device; ``renamed=True`` returns
-    the packed row order.  With a pack ``col_order``, x is given in
-    natural column order and permuted on the device (``permute_x=False``
-    when the caller already feeds packed-order x).  ``matmul(X)`` is the
-    multi-vector form."""
+    Construct once from a :class:`Wavepack` on a device (the card unless
+    the caller asks for the CPU), then call with dense vectors.
+    ``forward(x)`` returns y in natural row order as a tensor on the
+    operator's device; ``renamed=True`` returns the packed row order.  With
+    a pack ``col_order``, x is given in natural column order and permuted
+    on the device (``permute_x=False`` when the caller already feeds
+    packed-order x).  ``matmul(X)`` is the multi-vector form, ``masked(x,
+    active)`` the sparse-frontier form."""
 
-    def __init__(self, wp: Wavepack, device, permute_x: bool = True):
+    def __init__(self, wp: Wavepack, device="cuda", permute_x: bool = True):
         super().__init__()
         cfg = wp.config
         check_supported(cfg)
@@ -403,10 +527,14 @@ class SpmvOperator(torch.nn.Module):
         self.register_buffer("run_start", buf(start))
         self.register_buffer("run_end", buf(end))
         self.register_buffer("perm", buf(wp.perm, np.int64))
+        permute = permute_x and wp.col_order is not None
         self.register_buffer(
-            "col_order",
-            buf(wp.col_order, np.int64)
-            if permute_x and wp.col_order is not None else None)
+            "col_order", buf(wp.col_order, np.int64) if permute else None)
+        # natural column -> packed column, for the masked call's selection
+        self._col_rank = None
+        if permute:
+            self._col_rank = np.empty(wp.num_cols, np.int64)
+            self._col_rank[np.asarray(wp.col_order)] = np.arange(wp.num_cols)
 
     def stream_args(self, x: torch.Tensor, vals=None):
         """The operands of :func:`wavepack_spmv` for packed-order x, with
@@ -422,26 +550,116 @@ class SpmvOperator(torch.nn.Module):
         return stripe_fold(acc, self.cfg, self.wp.n_blocks).reshape(-1)
 
     def unpack_device(self, y_renamed: torch.Tensor) -> torch.Tensor:
-        """Renamed -> natural-row-order y on the device: one ``index_add_``
-        over the stored perm sums hub-split partials (padding rows map to
-        ``num_rows`` and are dropped).  On CUDA the partials of one row add
-        in no fixed order.  A (F, renamed) input gives (F, num_rows)."""
+        """Renamed -> natural-row-order y on the device: one scatter over
+        the stored perm combines hub-split partials with the semiring's
+        addition (padding rows map to ``num_rows`` and are dropped):
+        ``index_add_`` for plus_times, ``scatter_reduce_`` with amin or amax
+        over an identity-filled output for min_plus and max_times.  On CUDA
+        the partials of one row add in no fixed order.  max_times rows
+        with no term come out at 0, not -inf (``max(out, 0)``, the JAX
+        package's clamp).  A (F, renamed) input gives (F, num_rows)."""
         n = self.wp.num_rows
-        out = torch.zeros(y_renamed.shape[:-1] + (n + 1,),
-                          dtype=y_renamed.dtype, device=y_renamed.device)
-        out.index_add_(-1, self.perm, y_renamed)
+        sr = self.cfg.semiring
+        out = torch.full(y_renamed.shape[:-1] + (n + 1,), IDENTITY[sr],
+                         dtype=y_renamed.dtype, device=y_renamed.device)
+        if sr == "plus_times":
+            out.index_add_(-1, self.perm, y_renamed)
+        else:
+            out.scatter_reduce_(-1, self.perm.expand_as(y_renamed),
+                                y_renamed,
+                                "amin" if sr == "min_plus" else "amax")
+            if sr == "max_times":
+                out = out.clamp_min(0.0)
         return out[..., :n]
 
-    def forward(self, x, renamed: bool = False, vals=None) -> torch.Tensor:
-        """y = A x; ``vals`` (a stream of the pack's shape) replaces the
-        stored values for this call, as the training paths do."""
+    def _x(self, x) -> torch.Tensor:
         x = torch.as_tensor(x, device=self.device)
         if x.shape != (self.wp.num_cols,):
             raise ValueError(f"x has shape {tuple(x.shape)}, expected "
                              f"({self.wp.num_cols},)")
-        if self.col_order is not None:
-            x = x[self.col_order]
-        acc = wavepack_spmv(*self.stream_args(x, vals), self.cfg)
+        return x if self.col_order is None else x[self.col_order]
+
+    def forward(self, x, renamed: bool = False, vals=None) -> torch.Tensor:
+        """y = A x; ``vals`` (a stream of the pack's shape) replaces the
+        stored values for this call, as the training paths do."""
+        acc = wavepack_spmv(*self.stream_args(self._x(x), vals), self.cfg)
+        y = self.renamed_y(acc)
+        return y if renamed else self.unpack_device(y)
+
+    def active_tiles(self, active) -> np.ndarray:
+        """The tiles, in stream order, that can touch an active column
+        (``active_groups`` at tile granularity): a select-chain tile when
+        its partition holds an active column (every block of the partition
+        is a gather operand), a block-major tile when one of its groups'
+        (partition, class) pairs does.  Two-choice second-copy classes
+        re-bank columns across classes and count as active.  ``active`` is
+        a bool mask or an index array over the packed column space."""
+        cfg, wp = self.cfg, self.wp
+        ac = np.asarray(active)
+        if ac.dtype == np.bool_:
+            ac = np.flatnonzero(ac)
+        p = ac // cfg.vb_cols
+        part = np.asarray(wp.tile_part)
+        if cfg.block_major:
+            act = np.zeros((wp.n_parts, cfg.total_blocks), bool)
+            act[p, (ac % cfg.vb_cols) // (128 * LANES)] = True
+            if cfg.two_choice:
+                act[:, cfg.bank_blocks:] = True
+            tile_act = act[part[:, None, None], wp.class_map]
+            tile_act = tile_act.reshape(wp.num_tiles, -1).any(axis=1)
+        else:
+            act = np.zeros(wp.n_parts, bool)
+            act[p] = True
+            tile_act = act[part]
+        return np.flatnonzero(tile_act)
+
+    def masked(self, x, active, renamed: bool = False) -> torch.Tensor:
+        """SpMSpV analog: y = A x from only the tiles that can touch an
+        active column (:meth:`active_tiles`); the others are never read.
+        Right whenever x holds the semiring's annihilator outside
+        ``active`` (0 for plus_times, +inf for min_plus, 0 for max_times
+        over nonnegative data, the apps' convention).  ``x`` and
+        ``active`` (a bool mask or column ids, a numpy array or a tensor)
+        are in natural column order, mapped through the pack's
+        ``col_order`` as :meth:`forward` maps x.  Row blocks that no
+        selected tile reaches come out at the semiring's identity in
+        renamed order."""
+        x = self._x(x)
+        if isinstance(active, torch.Tensor):
+            active = active.cpu().numpy()
+        ac = np.asarray(active)
+        if ac.dtype == np.bool_:
+            ac = np.flatnonzero(ac)
+        if self._col_rank is not None:
+            ac = self._col_rank[ac]
+        return self.masked_tiles(x, self.active_tiles(ac), renamed)
+
+    def masked_args(self, x: torch.Tensor, tiles):
+        """The operands of :func:`wavepack_spmv_masked` for packed-order x
+        and the stream's ``tiles`` (ascending tile ids, as
+        :meth:`active_tiles` gives them): the ids and each block's run
+        into them (:func:`block_runs`), on the operator's device."""
+        tiles = np.asarray(tiles, np.int64)
+        if tiles.size and (tiles[0] < 0 or tiles[-1] >= self.wp.num_tiles
+                           or (np.diff(tiles) <= 0).any()):
+            raise ValueError("tiles must be ascending tile ids in "
+                             f"[0, {self.wp.num_tiles})")
+        start, end = block_runs(np.asarray(self.wp.tile_block)[tiles],
+                                self.wp.n_blocks)
+
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
+                self.device)
+
+        return (self.vals, self.idxT, dev(tiles), self.tile_part,
+                self.class_map, dev(start), dev(end),
+                build_xt(x, self.cfg, self.wp.n_parts))
+
+    def masked_tiles(self, x: torch.Tensor, tiles,
+                     renamed: bool = False) -> torch.Tensor:
+        """The masked call's device half: y from the stream's ``tiles``
+        alone, for packed-order x (:meth:`masked_args`)."""
+        acc = wavepack_spmv_masked(*self.masked_args(x, tiles), self.cfg)
         y = self.renamed_y(acc)
         return y if renamed else self.unpack_device(y)
 
@@ -472,12 +690,12 @@ class SpmvOperator(torch.nn.Module):
         return y_ren if renamed else self.unpack_device(y_ren).T
 
 
-def spmv(wp: Wavepack, x, device) -> torch.Tensor:
+def spmv(wp: Wavepack, x, device="cuda") -> torch.Tensor:
     """One-shot SpMV y = A @ x from a packed matrix."""
     return SpmvOperator(wp, device=device)(x)
 
 
-def spmm(wp: Wavepack, X, device) -> torch.Tensor:
+def spmm(wp: Wavepack, X, device="cuda") -> torch.Tensor:
     """One-shot SpMM Y = A @ X (X: (num_cols, F)) from a packed matrix;
     see :meth:`SpmvOperator.matmul`."""
     return SpmvOperator(wp, device=device).matmul(X)

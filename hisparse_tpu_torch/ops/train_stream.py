@@ -92,7 +92,7 @@ class StreamDiffSpmv(torch.nn.Module):
     not used here)."""
 
     def __init__(self, m: CSRMatrix, config: SpmvConfig | None = None,
-                 configT: SpmvConfig | None = None, *, device,
+                 configT: SpmvConfig | None = None, *, device="cuda",
                  split_max="auto", col_order=None, col_orderT=None,
                  **pack_kw):
         super().__init__()

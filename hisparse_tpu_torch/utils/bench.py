@@ -12,7 +12,8 @@ GOPS = 2*nnz/t and stream GB/s = stream_bytes/t are the reference's
 definitions (sw/benchmark.cpp:312-314, quoted in BASELINE.md).
 
 Also the parity families that the tests and ``chip_smoke.py`` run the
-port on.
+port on, a float64 oracle for the min_plus and max_times families, and
+sparse vectors for the masked call.
 """
 from __future__ import annotations
 
@@ -69,7 +70,7 @@ PARITY_FAMILIES = (
 
 FAMILY_INDEX = {f[0]: i for i, f in enumerate(PARITY_FAMILIES)}
 
-# the families this slice runs: fp32 plus_times
+# the plus_times families this port runs (fp32)
 FP32_FAMILIES = tuple(
     f for f in PARITY_FAMILIES
     if f[1].get("dtype", "fp32") == "fp32"
@@ -81,6 +82,16 @@ MULTIBLOCK_FAMILY = ("chain-multiblock",
                      dict(sublanes=256, bank_blocks=2, stripes=32),
                      None, "auto")
 
+# the min_plus and max_times families: the parity sweep's two, and
+# chain-fp32 (two_choice select-chain, the graph apps' own config shape) in
+# each semiring.  A family named "<base>/<semiring>" packs the matrix of
+# family <base> and takes its x.
+SEMIRING_FAMILIES = tuple(
+    f for f in PARITY_FAMILIES
+    if f[1].get("semiring", "plus_times") != "plus_times") + tuple(
+    (f"chain-fp32/{sr}", dict(PARITY_FAMILIES[0][1], semiring=sr), 0,
+     "auto") for sr in ("min_plus", "max_times"))
+
 
 def family_inputs(fam):
     """``(powerlaw_csr args, split_max, x seed)`` of a family's matrix."""
@@ -89,7 +100,7 @@ def family_inputs(fam):
     if name == MULTIBLOCK_FAMILY[0]:
         return (2 * cfg.rows_per_block - 10, cfg.vb_cols + 17, 4, 1.5,
                 6), None, 66
-    i = FAMILY_INDEX[name]
+    i = FAMILY_INDEX[name.split("/")[0]]
     return (2000, cfg.vb_cols + extra, 9, 1.2, 40 + i), 16, 100 + i
 
 
@@ -100,6 +111,39 @@ def family_case(fam):
     wp = pack(m, SpmvConfig(**fam[1]), split_max=split)
     x = np.random.default_rng(xseed).random(m.num_cols).astype(np.float32)
     return m, wp, x
+
+
+def semiring_f64(m, x, semiring: str) -> np.ndarray:
+    """Float64 oracle of ``y = A (x) x`` in natural row order: the row sum
+    of v*x (plus_times), the least v + x (min_plus; +inf for a row without
+    entries) or the greatest v*x clamped at 0 (max_times; 0 for a row
+    without entries, the port's and the JAX package's convention)."""
+    rows = np.repeat(np.arange(m.num_rows), m.row_nnz())
+    v = np.asarray(m.data, np.float64)
+    xc = np.asarray(x, np.float64)[m.indices]
+    if semiring == "plus_times":
+        out = np.zeros(m.num_rows)
+        np.add.at(out, rows, v * xc)
+    elif semiring == "min_plus":
+        out = np.full(m.num_rows, np.inf)
+        np.minimum.at(out, rows, v + xc)
+    else:
+        out = np.full(m.num_rows, -np.inf)
+        np.maximum.at(out, rows, v * xc)
+        out = np.maximum(out, 0.0)
+    return out
+
+
+def sparse_x(num_cols: int, k: int, semiring: str, seed: int = 0):
+    """``(x, active)``: float32 x holding the semiring's multiplicative
+    annihilator (+inf for min_plus, else 0) outside ``k`` random active
+    columns, which hold U(0.5, 1.5); ``active`` their sorted ids."""
+    rng = np.random.default_rng(seed)
+    active = np.sort(rng.choice(num_cols, k, replace=False))
+    x = np.full(num_cols, np.inf if semiring == "min_plus" else 0.0,
+                np.float32)
+    x[active] = rng.random(k) + 0.5
+    return x, active
 
 
 def device_time_ms(fn: Callable[[], object], reps: int = 20,

@@ -12,7 +12,10 @@ Tolerances, as max|dy| / max(max|y|, 1): kernel against plain version
 separately, so only an FMA-free difference could show); natural-order y
 against the f64 golden 1e-4 (the suite's gate).  The gradient stream is
 one product per slot and is held bit for bit; on streams of arbitrary idx
-words every kernel is held bit for bit.
+words every kernel is held bit for bit.  min_plus and max_times round
+once per term and take an exact min or max, so their kernels are held
+bit for bit everywhere, NaN placement included, and the masked kernel
+bit for bit against its plain version and against the full SpMV.
 """
 import numpy as np
 import pytest
@@ -22,11 +25,13 @@ from hisparse_tpu_torch import SpmvOperator
 from hisparse_tpu_torch.ops import _kernels
 from hisparse_tpu_torch.ops.golden import spmv_f64
 from hisparse_tpu_torch.ops.spmv import (
-    SPMM_MAX_F, build_xt, build_xt_multi, gradstream_tiles_plain,
-    spmm_tiles_plain, spmv_tiles_plain, wavepack_gradstream, wavepack_spmm,
-    wavepack_spmv)
+    SPMM_MAX_F, build_xt, build_xt_multi,
+    gradstream_tiles_plain, spmm_tiles_plain, spmv_masked_tiles_plain,
+    spmv_tiles_plain, wavepack_gradstream, wavepack_spmm, wavepack_spmv,
+    wavepack_spmv_masked)
 from hisparse_tpu_torch.utils.bench import (FP32_FAMILIES, MULTIBLOCK_FAMILY,
-                                           family_case)
+                                           SEMIRING_FAMILIES, family_case,
+                                           semiring_f64, sparse_x)
 
 
 @pytest.fixture
@@ -259,3 +264,139 @@ def test_profile_breakdown_sees_the_kernel(cuda_device):
     assert 0.0 < prof["busy_us"]
     assert 0.0 <= prof["idle_share"] < 1.0
     assert prof["ops"] == sorted(prof["ops"], reverse=True)
+
+
+def _exact(a, b):
+    """Bit for bit, NaN placement included."""
+    torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fam", SEMIRING_FAMILIES, ids=lambda f: f[0])
+def test_semiring_kernels_match_plain_on_cuda(fam, cuda_device):
+    """min_plus and max_times: the SpMV kernel bit for bit against its
+    plain version and within 1e-6 of the float64 oracle (finite rows; the
+    same rows infinite), SpMM at F = 5 bit for bit, each launch counted."""
+    m, wp, x = family_case(fam)
+    sr = wp.config.semiring
+    op = SpmvOperator(wp, device=cuda_device)
+    args = op.stream_args(torch.from_numpy(x).to(cuda_device))
+    before = _kernels.launches
+    acc = wavepack_spmv(*args, op.cfg)
+    torch.cuda.synchronize()
+    assert _kernels.launches == before + 1
+    _exact(acc, spmv_tiles_plain(*args, op.cfg))
+    y = op(torch.from_numpy(x).to(cuda_device)).cpu().numpy()
+    ref = semiring_f64(m, x, sr)
+    fin = np.isfinite(ref)
+    assert (np.isfinite(y) == fin).all()
+    assert np.abs(y[fin] - ref[fin]).max() <= 1e-6 * max(
+        np.abs(ref[fin]).max(), 1.0)
+    X = torch.from_numpy(np.random.default_rng(5).random(
+        (wp.num_cols, 5)).astype(np.float32)).to(cuda_device)
+    sargs = (op.vals, op.idxT, op.tile_part, op.class_map, op.run_start,
+             op.run_end, build_xt_multi(X, op.cfg, wp.n_parts), op.cfg)
+    before = _kernels.spmm_launches
+    accm = wavepack_spmm(*sargs)
+    torch.cuda.synchronize()
+    assert _kernels.spmm_launches == before + 1
+    _exact(accm, spmm_tiles_plain(*sargs))
+
+
+def _semiring_cases():
+    """(family, semiring) for every fp32 family and each semiring its
+    config allows (min_plus refuses steal_mantissa)."""
+    out = []
+    for fam in FP32_FAMILIES + (MULTIBLOCK_FAMILY,):
+        for sr in ("plus_times", "min_plus", "max_times"):
+            if not (sr == "min_plus" and fam[1].get("steal_mantissa")):
+                out.append((fam[0] + "/" + sr,
+                            dict(fam[1], semiring=sr)) + fam[2:])
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fam", _semiring_cases(), ids=lambda f: f[0])
+def test_masked_kernel_matches_plain_and_full(fam, cuda_device):
+    """The masked kernel bit for bit against its plain version, with 40
+    active columns, and masked == full (natural order; renamed for
+    plus_times); the masked counter rises by one per launch."""
+    from hisparse_tpu_torch import pack, powerlaw_csr
+    from hisparse_tpu_torch.config import SpmvConfig
+    from hisparse_tpu_torch.utils.bench import family_inputs
+    name, kw = fam[0], fam[1]
+    args, split, _ = family_inputs((name.split("/")[0],) + fam[1:])
+    m = powerlaw_csr(*args)
+    wp = pack(m, SpmvConfig(**kw), split_max=split)
+    op = SpmvOperator(wp, device=cuda_device)
+    x, act = sparse_x(m.num_cols, 40, kw["semiring"], seed=3)
+    x_dev = torch.from_numpy(x).to(cuda_device)
+    margs = op.masked_args(x_dev, op.active_tiles(act)) + (op.cfg,)
+    before = _kernels.masked_launches
+    acc = wavepack_spmv_masked(*margs)
+    torch.cuda.synchronize()
+    assert _kernels.masked_launches == before + 1
+    _exact(acc, spmv_masked_tiles_plain(*margs))
+    # plus_times in renamed order: on CUDA index_add_ adds a split row's
+    # partials in no fixed order
+    renamed = kw["semiring"] == "plus_times"
+    _exact(op.masked(x_dev, act, renamed=renamed), op(x_dev, renamed=renamed))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sr", ["plus_times", "min_plus", "max_times"])
+def test_nan_lands_in_the_same_rows(sr, cuda_device):
+    """A NaN in x reaches the same accumulator slots through the SpMV,
+    SpMM and masked kernels as through their plain versions."""
+    fam = next(f for f in SEMIRING_FAMILIES if f[0] == "chain-fp32/min_plus")
+    from hisparse_tpu_torch import pack
+    from hisparse_tpu_torch.config import SpmvConfig
+    m, _, x = family_case(fam)
+    wp = pack(m, SpmvConfig(**dict(fam[1], semiring=sr)), split_max=16)
+    op = SpmvOperator(wp, device=cuda_device)
+    x[m.indices[[0, m.nnz // 2]]] = np.nan    # two columns with entries
+    x_dev = torch.from_numpy(x).to(cuda_device)
+    args = op.stream_args(x_dev)
+    acc = wavepack_spmv(*args, op.cfg)
+    assert torch.isnan(acc).any()
+    _exact(acc, spmv_tiles_plain(*args, op.cfg))
+    xt = build_xt_multi(torch.stack([x_dev, x_dev.flip(0)], 1), op.cfg,
+                        wp.n_parts)
+    sargs = (op.vals, op.idxT, op.tile_part, op.class_map, op.run_start,
+             op.run_end, xt, op.cfg)
+    _exact(wavepack_spmm(*sargs), spmm_tiles_plain(*sargs))
+    margs = op.masked_args(x_dev, np.arange(wp.num_tiles)) + (op.cfg,)
+    _exact(wavepack_spmv_masked(*margs), acc)
+    _exact(spmv_masked_tiles_plain(*margs), acc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FUZZ_CASES))
+@pytest.mark.parametrize("sr", ["min_plus", "max_times"])
+def test_semiring_kernels_on_arbitrary_words(case, sr, cuda_device):
+    """The SpMV, SpMM and masked kernels in min_plus and max_times, bit
+    for bit against their plain versions on a stream of arbitrary idx
+    words and signed values; the empty block comes out at the identity."""
+    from hisparse_tpu_torch import SpmvConfig
+    kw = dict(FUZZ_CASES[case], semiring=sr)
+    if sr == "min_plus" and kw.get("steal_mantissa"):
+        pytest.skip("min_plus packs never steal mantissa bits (config.py)")
+    cfg = SpmvConfig(sublanes=256, stripes=128, **kw)
+    (v, idx, part, cmap, start, end, block), rng, dev = fuzz_stream(
+        cfg, cuda_device)
+    S = cfg.sublanes
+    ident = float("inf") if sr == "min_plus" else float("-inf")
+    xt = dev(rng.standard_normal((2, cfg.total_blocks, 128, 128)),
+             np.float32)
+    args = (v, idx, part, cmap, start, end, xt)
+    acc = wavepack_spmv(*args, cfg)
+    _exact(acc, spmv_tiles_plain(*args, cfg))
+    assert (acc.reshape(3, S, 128)[1] == ident).all()
+    xtm = dev(rng.standard_normal((2, 5, cfg.total_blocks, 128, 128)),
+              np.float32)
+    args = (v, idx, part, cmap, start, end, xtm)
+    _exact(wavepack_spmm(*args, cfg), spmm_tiles_plain(*args, cfg))
+    # tiles 1, 3 and 5: block 0 keeps one, block 2 two
+    margs = (v, idx, dev([1, 3, 5], np.int32), part, cmap,
+             dev([0, 1, 1], np.int32), dev([1, 1, 3], np.int32), xt, cfg)
+    _exact(wavepack_spmv_masked(*margs), spmv_masked_tiles_plain(*margs))

@@ -26,6 +26,15 @@ sums) do not move the steal_mantissa truncation of the updated values.
 After each step the port's vA and vT are bit-equal to the JAX package's
 (read through ``tile_src``): the gradient streams and the update are
 elementwise and rounded alike.
+
+The apps slice, ``test_apps_slice_matches_reference``, cuts the suite's
+SSSP row (bench.py, ``sssp_bfs_tracking_rows``: rmat_csr(1632000,
+1632000, 19, seed=6), the pokec-shape stand-in, from source 0 at the
+default ``SpmvConfig``) to 6000 vertices with 19 edges a vertex on
+average.  Both packages run SSSP to the fixpoint, dense and masked: the
+distances are bit-equal (min_plus rounds once per term and takes exact
+minima), the iteration counts equal, and both within the JAX tests'
+rtol=1e-4 of Dijkstra, with the same vertices unreachable.
 """
 import dataclasses
 import functools
@@ -132,3 +141,22 @@ def test_training_slice_matches_reference():
             sd.vT.detach().numpy(), stream_from_jax(vT, ref.d.opT.tile_src))
         np.testing.assert_array_equal(sd.values(), sd.values_T())
     assert losses[-1] < losses[0]
+
+
+def test_apps_slice_matches_reference():
+    from hisparse_tpu.models.apps import SSSP as RefSSSP
+    m_r = ht.rmat_csr(6000, 6000, 19, seed=6)
+    m_p = hp.rmat_csr(6000, 6000, 19, seed=6)
+    ref = RefSSSP(m_r, interpret=True)
+    ss = hp.SSSP(m_p, device="cpu")
+    assert ss.wp.num_tiles == ref.wp.num_tiles
+    dijkstra = hp.sssp_reference(m_p, 0)
+    fin = np.isfinite(dijkstra)
+    for masked in (False, True):
+        d = ss.run(source=0, masked=masked).numpy()
+        np.testing.assert_array_equal(d, ref.run(source=0, masked=masked))
+        assert ss.iters_run == ref.iters_run
+        assert (np.isfinite(d) == fin).all()
+        np.testing.assert_allclose(d[fin], dijkstra[fin], rtol=1e-4,
+                                   atol=1e-5)
+    assert len(ss.tiles_streamed) == ss.iters_run

@@ -119,7 +119,7 @@ def test_spmm_rejects_bad_input():
     with pytest.raises(ValueError, match="num_cols, F"):
         op.matmul(np.zeros((m.num_cols + 1, 2), np.float32))
     cfg = hp.SpmvConfig(sublanes=128, bank_blocks=1, stripes=128,
-                        semiring="min_plus")
+                        dtype="bf16")
     with pytest.raises(NotImplementedError):
         hp.spmm(hp.pack(m, cfg), np.zeros((m.num_cols, 2), np.float32),
                 device="cpu")

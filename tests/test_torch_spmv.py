@@ -117,7 +117,7 @@ def test_col_order_permutes_x():
     assert _err(y_raw, y_ref) <= TOL_REF
 
 
-UNSUPPORTED = {
+CONFIG_KINDS = {
     "bf16": dict(dtype="bf16"),
     "min_plus": dict(semiring="min_plus", two_choice=False),
     "max_times": dict(semiring="max_times", two_choice=False),
@@ -125,11 +125,24 @@ UNSUPPORTED = {
 }
 
 
-@pytest.mark.parametrize("kind", list(UNSUPPORTED))
+@pytest.mark.parametrize("kind", list(CONFIG_KINDS))
 def test_unsupported_configs_raise(kind):
-    cfg = hp.SpmvConfig(sublanes=128, bank_blocks=2, stripes=64,
-                        **UNSUPPORTED[kind])
+    """bf16 and fixed-point packs raise ``NotImplementedError`` in the
+    operator, the kernel wrapper and the plain version.  min_plus and
+    max_times, which raised until the semiring slice, run and match the
+    JAX operator bit for bit (one rounding per term, exact min and max)."""
+    kw = dict(sublanes=128, bank_blocks=2, stripes=64, **CONFIG_KINDS[kind])
+    cfg = hp.SpmvConfig(**kw)
     m = hp.powerlaw_csr(300, 400, 5, seed=2)
+    if kind in ("min_plus", "max_times"):
+        wr = ht.pack(ht.powerlaw_csr(300, 400, 5, seed=2),
+                     ht.SpmvConfig(**kw))
+        x = np.random.default_rng(2).random(m.num_cols).astype(np.float32)
+        y = hp.SpmvOperator(hp.pack(m, cfg), device="cpu")(
+            torch.from_numpy(x))
+        np.testing.assert_array_equal(
+            y.numpy(), np.asarray(ht.SpmvOperator(wr, interpret=True)(x)))
+        return
     if kind == "fixed":
         m = dataclasses.replace(m, data=np.ones(m.nnz, np.uint32))
     wp = hp.pack(m, cfg)
