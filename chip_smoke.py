@@ -7,15 +7,18 @@ Phases, in order; any failure raises and exits non-zero:
   1. require a CUDA device; print the card's name and power limit as
      ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
      gives them;
-  2. build the four CUDA kernels (nvcc, sm_90a, one process for each of
-     the two sources, in parallel; SpMV, SpMM and the masked SpMV share
+  2. build the five CUDA kernels (nvcc, sm_90a, one process for each of
+     the three sources, in parallel; SpMV, SpMM and the masked SpMV share
      one kernel body) and the native packer (g++) from the sources in this
      checkout; print the build seconds and each kernel's registers per
-     thread (``ptxas -v``, the sources compiled once more);
-  3. on the fp32 parity families of the JAX package's chip sweep (plus one
-     two-block pack), hold the SpMV kernel against its plain PyTorch
-     version on the same CUDA operands (max|dy|/max|y| <= 1e-6) and both
-     against the f64 golden (<= 1e-4);
+     thread (``ptxas -v``, the sources compiled once more), and whether
+     the committed rates file (models/rates_h100.json) names this card;
+  3. on the plus_times parity families of the JAX package's chip sweep
+     (fp32, Q8.24 and bf16 values, plus one two-block pack), hold the SpMV
+     kernel against its plain PyTorch version on the same CUDA operands
+     (max|dy|/max|y| <= 1e-6 for fp32; bf16 and Q8.24 bit for bit) and
+     the operator's y against the golden (f64 within 1e-4, bf16 within
+     8e-3; Q8.24 equal to golden.spmv_fixed_vec);
   4. serving at full size: the googleplus stand-in of the suite,
      powerlaw_csr(108000, 108000, 127, 1.2, seed=11), packed natively at
      its tuned design point, through SpmvOperator(wp, device="cuda") to
@@ -71,18 +74,44 @@ Phases, in order; any failure raises and exits non-zero:
      stream in chunks); the two kernels timed on the pokec pack beside
      their bounds; the PageRank, BFS and SSSP steps timed (PageRank beside
      a cuSPARSE CSR SpMV of its matrix) and profiled; generate, pack and
-     Dijkstra seconds and the masked call's host time printed.
+     Dijkstra seconds and the masked call's host time printed; the SpMV
+     kernel and the SpMM kernel at F = 16 on the PageRank pack (4 column
+     partitions) timed beside their bounds and cuSPARSE;
+  9. the format dispatch at the suite's sizes: choose_format (on the
+     committed card rates) on bcsr-spmm-16k (block_structured_csr(16384,
+     16384, block_rows=24, seed=7), bench.py:897-921), the six
+     transformer_* matrices of the pruned-NN suite (bench.py:533-537) and
+     googleplus, each pick printed; then, counted, bcsr-spmm-16k through
+     BcsrOperator bf16 with 64 right-hand sides from default_rng(1) (as
+     bench.py's row runs it, whatever the pick), each transformer matrix
+     picked dense through DenseOperator bf16, and the fixed-point row
+     (uniform_sparse_csr(60000, 60000, 16, seed=1) at its tuned point,
+     bench.py:677-679, bench_tuned.json) through SpmvOperator: the fixed
+     row bit for bit equal to golden.spmv_fixed_vec and its kernel to its
+     plain version; bcsr-spmm-16k within 1e-4 (of max|Y|) of a float64
+     product of the bf16-rounded blocks and X, the kernel within 1e-4 of
+     its plain version, fp32 blocks at k = 1 and 64 within 1e-4 of f64;
+     the dense picks within 1e-4 of a float64 product of the bf16-rounded
+     operands; the BCSR and SpMV counters above 0.  The BCSR kernel is
+     timed beside its bound, its plain version, cuSPARSE
+     (torch.sparse.mm(csr_fp32, X)) and a PyTorch BSR product
+     (torch.sparse_bsr_tensor @ X, bf16), yardsticks only, and beside the
+     dense arm on the same product (SpmmOperator bf16); the fixed row's
+     kernel beside its bound, in GOPS; each dense pick's forward beside its
+     bound and the wavepack forward of the same matrix.
 
 The kernels' times keep the host's enqueue out
 (``device_time_ms(queued=True)``); the forwards, steps and plain versions
 are timed with it, as their callers wait for it.  A profile
 (``utils/bench.profile_breakdown``) prints a call's device time by op and
 its device idle share.  The line before the last is a JSON object with
-the four kernels' records: launches by path, each time beside its bound
-(the larger of the bytes it must move over 3.35 TB/s and its fp32
-operations over 67 TFLOP/s) and, where one PyTorch call computes the same
-function, that call's time (``library_ms``: cuSPARSE SpMV and SpMM; no
-PyTorch call computes the gradient stream or a masked SpMV); the last is
+the five kernels' records: launches by path, each time beside its bound
+(the larger of the bytes it must move over 3.35 TB/s and its operations
+over the peak named in ``peak``: 67 TFLOP/s fp32 outside the tensor
+cores, or 989 TFLOP/s bf16 on them for the bf16 BCSR kernel) and, where
+one PyTorch call computes the same function, that call's time
+(``library_ms``: cuSPARSE SpMV, SpMM and, for BCSR, CSR SpMM; no PyTorch
+call computes the gradient stream or a masked SpMV); the last is
 ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -110,12 +139,24 @@ APPS_100K = dict(shape=(100000, 100000, 10), alpha=1.3, seed=2)
 POKEC = dict(shape=(1632000, 1632000, 19), seed=6)
 PR_ITERS = 20
 MASKED_ACTIVE = 40            # active columns of the phase-5 masked cases
+# the dispatch rows (bench.py:533-537, :677-679, :897-921): the pruned-NN
+# suite, the fixed-point row at its tuned point (bench_tuned.json) and the
+# block-structured SpMM row with 64 right-hand sides
+TRANSFORMER_PCTS = (50, 60, 70, 80, 90, 95)
+FIXED_ROW = dict(shape=(60000, 60000, 16), seed=1)
+FIXED_CFG = dict(sublanes=512, bank_blocks=4, stripes=512, dtype="fixed",
+                 block_major=True, classes_per_group=2, two_choice=True)
+FIXED_PACK = dict(split_max=16, col_order="degree", bm_win=1, bm_adv=1)
+BCSR16K = dict(shape=(16384, 16384), block_rows=24, seed=7)
+BCSR_RHS = 64
 TOL_PLAIN = 1e-6
 TOL_F64 = 1e-4
+TOL_BF16 = 8e-3               # one bf16 rounding a term (test_formats.py:433)
 # the card's peaks for bound_ms (NVIDIA data sheet, H100 SXM at 700 W): HBM3
-# bytes and fp32 operations outside the tensor cores, a second
+# bytes, fp32 operations outside the tensor cores and bf16 operations on
+# them, a second
 HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
+PEAK_OPS_PER_S = {"fp32": 67e12, "bf16_tensor": 989e12}
 
 
 def rel_err(a, b) -> float:
@@ -132,7 +173,8 @@ def counts(kernels) -> dict:
     return {"wavepack_spmv": kernels.launches,
             "wavepack_gradstream": kernels.gradstream_launches,
             "wavepack_spmm": kernels.spmm_launches,
-            "wavepack_spmv_masked": kernels.masked_launches}
+            "wavepack_spmv_masked": kernels.masked_launches,
+            "bcsr": kernels.bcsr_launches}
 
 
 def reset_counts(kernels) -> None:
@@ -140,21 +182,26 @@ def reset_counts(kernels) -> None:
     kernels.gradstream_launches = 0
     kernels.spmm_launches = 0
     kernels.masked_launches = 0
+    kernels.bcsr_launches = 0
 
 
 def print_registers(counts: dict) -> None:
     """Registers per thread of each kernel, grouped by kind: the SpMV body
-    by features, semiring and masked flag (over the six kinds of pack),
-    the gradient stream alone."""
+    by value word, features, algebra and masked flag (over the kinds of
+    pack), the gradient stream and the BCSR kernels by name."""
     import re
-    names = {"0": "plus_times", "1": "min_plus", "2": "max_times"}
+    names = {"0": "plus_times", "1": "min_plus", "2": "max_times",
+             "3": "fixed"}
     groups: dict = {}
     for sym, regs in counts.items():
-        m = re.search(r"wavepack_kernelI[is]Lb\dELb\dELi(\d+)ELi(\d)ELb(\d)E",
-                      sym)
-        key = (f"wavepack_kernel kF={m[1]} {names[m[2]]}"
-               + (" masked" if m[3] == "1" else "")) if m else (
-            "wavepack_gradstream_kernel" if "gradstream" in sym else sym)
+        m = re.search(r"wavepack_kernelI([jt])[is]Lb\dELb\dELi(\d+)ELi(\d)"
+                      r"ELb(\d)E", sym)
+        other = next((k for k in ("wavepack_gradstream_kernel",
+                                  "bcsr_bf16_kernel", "bcsr_f32_kernel")
+                      if k in sym), sym)
+        key = (f"wavepack_kernel {'bf16' if m[1] == 't' else '32-bit'} "
+               f"kF={m[2]} {names[m[3]]}"
+               + (" masked" if m[4] == "1" else "")) if m else other
         groups.setdefault(key, []).append(regs)
     for key in sorted(groups):
         r = groups[key]
@@ -167,13 +214,15 @@ def nbytes(*tensors) -> int:
                if t is not None)
 
 
-def bound(n_bytes: float, n_ops: float) -> dict:
+def bound(n_bytes: float, n_ops: float, peak: str = "fp32") -> dict:
     """``bound_ms``, the least time the card could take for work that
-    moves ``n_bytes`` and does ``n_ops`` fp32 operations, and ``bound_by``,
-    which of the two sets it."""
-    t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
+    moves ``n_bytes`` and does ``n_ops`` operations at the ``peak`` rate
+    (``PEAK_OPS_PER_S``), ``bound_by``, which of the two sets it, and the
+    peak used."""
+    t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / PEAK_OPS_PER_S[peak]
     return {"bound_ms": max(t_b, t_o) * 1e3,
-            "bound_by": "bytes" if t_b >= t_o else "operations"}
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "peak": peak}
 
 
 def spmv_bound(args, out, F: int = 1, slots: int | None = None) -> dict:
@@ -232,34 +281,63 @@ def to_np(t) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
-def phase_families(dev) -> float:
-    """Phase 3: the SpMV kernel vs its plain version on the families."""
+def family_x(op, x, dev):
+    """A family's x on the card in packed column order: Q8.24 words for a
+    fixed-point pack."""
     import torch
+    from hisparse_tpu_torch.ops.spmv import fixed_bits
+    x_dev = (fixed_bits(x) if op.cfg.dtype == "fixed"
+             else torch.from_numpy(x)).to(dev)
+    return x_dev if op.col_order is None else x_dev[op.col_order]
+
+
+def phase_families(dev) -> dict:
+    """Phase 3: the SpMV kernel vs its plain version on every plus_times
+    family (fp32 within TOL_PLAIN, bf16 and Q8.24 bit for bit) and the
+    operator's y against the golden."""
     from hisparse_tpu_torch import SpmvOperator
-    from hisparse_tpu_torch.ops.golden import spmv_f64
+    from hisparse_tpu_torch.ops.golden import spmv_f64, spmv_fixed_vec
     from hisparse_tpu_torch.ops.spmv import spmv_tiles_plain, wavepack_spmv
-    from hisparse_tpu_torch.utils.bench import (FP32_FAMILIES,
-                                               MULTIBLOCK_FAMILY, family_case)
-    worst = 0.0
-    for fam in FP32_FAMILIES + (MULTIBLOCK_FAMILY,):
+    from hisparse_tpu_torch.utils.bench import (MULTIBLOCK_FAMILY,
+                                               PLUS_TIMES_FAMILIES,
+                                               family_case)
+    worst, n_exact = 0.0, 0
+    for fam in PLUS_TIMES_FAMILIES + (MULTIBLOCK_FAMILY,):
         m, wp, x = family_case(fam)
         op = SpmvOperator(wp, device=dev)
-        args = op.stream_args(torch.from_numpy(x).to(dev))
-        y_k = op.renamed_y(wavepack_spmv(*args, op.cfg))
-        y_p = op.renamed_y(spmv_tiles_plain(*args, op.cfg))
+        dtype = op.cfg.dtype
+        args = op.stream_args(family_x(op, x, dev))
+        acc_k = wavepack_spmv(*args, op.cfg)
+        acc_p = spmv_tiles_plain(*args, op.cfg)
+        head = (f"family {fam[0]:18s} tiles {wp.num_tiles:3d} blocks "
+                f"{wp.n_blocks} parts {wp.n_parts}: ")
+        if dtype != "fp32":
+            ok = exact(acc_k, acc_p)
+            if dtype == "fixed":
+                y = op(x).numpy()
+                good = bool(np.array_equal(y, spmv_fixed_vec(m, x, m.data)))
+                what = f"y == spmv_fixed_vec {good}"
+            else:
+                e = rel_err(to_np(op(x)), spmv_f64(m, x))
+                good = e <= TOL_BF16
+                what = f"y vs f64 {e:.3e} (gate {TOL_BF16})"
+            print(head + f"kernel==plain {ok}; {what}", flush=True)
+            check(ok and good, f"{fam[0]}: kernel==plain {ok}, {what}")
+            n_exact += 1
+            continue
+        y_k, y_p = op.renamed_y(acc_k), op.renamed_y(acc_p)
         ref = spmv_f64(m, x)
         e_kp = rel_err(y_k.cpu(), y_p.cpu())
         e_k = rel_err(op.unpack_device(y_k).cpu(), ref)
         e_p = rel_err(op.unpack_device(y_p).cpu(), ref)
         worst = max(worst, e_kp)
-        print(f"family {fam[0]:18s} tiles {wp.num_tiles:3d} blocks "
-              f"{wp.n_blocks} parts {wp.n_parts}: kernel-vs-plain {e_kp:.3e}"
-              f"  kernel-vs-f64 {e_k:.3e}  plain-vs-f64 {e_p:.3e}",
-              flush=True)
+        print(head + f"kernel-vs-plain {e_kp:.3e}  kernel-vs-f64 {e_k:.3e}  "
+              f"plain-vs-f64 {e_p:.3e}", flush=True)
         check(e_kp <= TOL_PLAIN, f"{fam[0]}: kernel vs plain {e_kp}")
         check(e_k <= TOL_F64 and e_p <= TOL_F64,
               f"{fam[0]}: vs spmv_f64 {e_k} / {e_p}")
-    return worst
+    return {"worst_family_rel_err": worst,
+            "bit_equal_value_type_families": n_exact}
 
 
 def phase_serving(dev, kernels):
@@ -355,7 +433,9 @@ def phase_kernel_families(dev) -> tuple:
         build_xt, build_xt_multi, gradstream_tiles_plain, spmm_tiles_plain,
         wavepack_gradstream, wavepack_spmm)
     from hisparse_tpu_torch.utils.bench import (FP32_FAMILIES,
-                                               MULTIBLOCK_FAMILY, family_case)
+                                               MULTIBLOCK_FAMILY,
+                                               PLUS_TIMES_FAMILIES,
+                                               family_case)
     worst_g = worst_s = 0.0
     for i, fam in enumerate(FP32_FAMILIES + (MULTIBLOCK_FAMILY,)):
         _, wp, x = family_case(fam)
@@ -389,6 +469,20 @@ def phase_kernel_families(dev) -> tuple:
               + " / ".join(f"{e:.3e}" for e in e_s), flush=True)
         check(e_g <= TOL_PLAIN, f"{fam[0]}: gradstream kernel vs plain {e_g}")
         check(max(e_s) <= TOL_PLAIN, f"{fam[0]}: spmm kernel vs plain {e_s}")
+    # the bf16 stream through the SpMM kernel, bit for bit
+    fam = next(f for f in PLUS_TIMES_FAMILIES if f[1].get("dtype") == "bf16")
+    _, wp, _ = family_case(fam)
+    op = SpmvOperator(wp, device=dev)
+    oks = []
+    for F in (1, 5, 16):
+        X = torch.from_numpy(np.random.default_rng(F).standard_normal(
+            (wp.num_cols, F)).astype(np.float32)).to(dev)
+        sargs = (op.vals, op.idxT, op.tile_part, op.class_map, op.run_start,
+                 op.run_end, build_xt_multi(X, op.cfg, wp.n_parts), op.cfg)
+        oks.append(exact(wavepack_spmm(*sargs), spmm_tiles_plain(*sargs)))
+    print(f"family {fam[0]:18s} spmm kernel==plain F=1/5/16 {oks}",
+          flush=True)
+    check(all(oks), f"{fam[0]}: spmm kernel vs plain {oks}")
     return worst_g, worst_s
 
 
@@ -413,8 +507,9 @@ def phase_semiring_families(dev) -> dict:
         build_xt_multi, spmm_tiles_plain, spmv_masked_tiles_plain,
         spmv_tiles_plain, wavepack_spmm, wavepack_spmv, wavepack_spmv_masked)
     from hisparse_tpu_torch.utils.bench import (
-        FP32_FAMILIES, MULTIBLOCK_FAMILY, SEMIRING_FAMILIES, family_case,
-        family_inputs, semiring_f64, sparse_x)
+        FP32_FAMILIES, MULTIBLOCK_FAMILY, PLUS_TIMES_FAMILIES,
+        SEMIRING_FAMILIES, family_case, family_inputs, semiring_f64,
+        sparse_x)
     worst_f64, n_exact = 0.0, 0
     for fam in SEMIRING_FAMILIES:
         m, wp, x = family_case(fam)
@@ -441,13 +536,17 @@ def phase_semiring_families(dev) -> dict:
         check(e <= TOL_F64 and same_inf, f"{fam[0]}: vs f64 {e}")
         worst_f64 = max(worst_f64, e)
         n_exact += 2
-    # the masked kernel on every fp32 family, in each semiring
-    for fam in FP32_FAMILIES + (MULTIBLOCK_FAMILY,):
+    # the masked kernel on every fp32 family, in each semiring, and on the
+    # bf16 family (plus_times only)
+    bf16_fam = next(f for f in PLUS_TIMES_FAMILIES
+                    if f[1].get("dtype") == "bf16")
+    for fam in FP32_FAMILIES + (bf16_fam, MULTIBLOCK_FAMILY):
         args, split, _ = family_inputs(fam)
         m = powerlaw_csr(*args)
         line = []
         for sr in ("plus_times", "min_plus", "max_times"):
-            if sr == "min_plus" and fam[1].get("steal_mantissa"):
+            if ((sr == "min_plus" and fam[1].get("steal_mantissa"))
+                    or (sr != "plus_times" and fam is bf16_fam)):
                 continue
             wp = pack(m, SpmvConfig(**dict(fam[1], semiring=sr)),
                       split_max=split)
@@ -856,8 +955,11 @@ def phase_apps(dev, kernels):
                                     pagerank_reference, powerlaw_csr,
                                     rmat_csr, sssp_reference)
     from hisparse_tpu_torch.models.apps import y_to_rank
-    from hisparse_tpu_torch.ops.spmv import (spmv_masked_tiles_plain,
-                                             spmv_tiles_plain, wavepack_spmv,
+    from hisparse_tpu_torch.ops.spmv import (build_xt_multi,
+                                             spmm_tiles_plain,
+                                             spmv_masked_tiles_plain,
+                                             spmv_tiles_plain, wavepack_spmm,
+                                             wavepack_spmv,
                                              wavepack_spmv_masked)
     from hisparse_tpu_torch.utils.bench import (device_time_ms, gops,
                                                profile_breakdown)
@@ -1027,6 +1129,41 @@ def phase_apps(dev, kernels):
           f"({gops(g.nnz, ms_pr):.2f} GOPS); cuSPARSE csr @ x on the "
           f"normalised matrix {ms_cs:.4f} ms ({gops(g.nnz, ms_cs):.2f} GOPS)",
           flush=True)
+    # the paged (multi-partition) kernels on the PageRank pack: SpMV and
+    # SpMM at F = 16, beside their bounds and cuSPARSE on the same matrix
+    op_pr, args_pr = pr.op, cmps[0]["args"]
+    ms_pk = device_time_ms(lambda: wavepack_spmv(*args_pr, op_pr.cfg),
+                           reps=50, queued=True)
+    b_pk = spmv_bound(args_pr, cmps[0]["acc"])
+    H16 = torch.from_numpy(np.random.default_rng(29).standard_normal(
+        (g.num_cols, 16)).astype(np.float32)).to(dev)
+    H16p = H16 if op_pr.col_order is None else H16[op_pr.col_order]
+    sargs = (op_pr.vals, op_pr.idxT, op_pr.tile_part, op_pr.class_map,
+             op_pr.run_start, op_pr.run_end,
+             build_xt_multi(H16p, op_pr.cfg, op_pr.wp.n_parts), op_pr.cfg)
+    acc_sk, acc_sp = wavepack_spmm(*sargs), spmm_tiles_plain(*sargs)
+    e_s = rel_err(to_np(acc_sk), to_np(acc_sp))
+    check(e_s <= TOL_PLAIN, f"pagerank pack spmm F=16 kernel vs plain {e_s}")
+    ms_sk = device_time_ms(lambda: wavepack_spmm(*sargs), reps=20,
+                           queued=True)
+    ms_sp = device_time_ms(lambda: spmm_tiles_plain(*sargs), reps=2,
+                           warmup=1)
+    b_sk = spmv_bound(sargs[:-1], acc_sk, F=16)
+    ms_scs = device_time_ms(lambda: torch.sparse.mm(a_pr, H16), reps=20)
+    print(f"time paged kernels, pagerank pack ({op_pr.wp.n_parts} "
+          f"partitions): spmv {ms_pk:.4f} ms (bound {b_pk['bound_ms']:.4f} "
+          f"ms, cuSPARSE csr @ x {ms_cs:.4f} ms); spmm F=16 {ms_sk:.4f} ms "
+          f"(bound {b_sk['bound_ms']:.4f} ms {b_sk['bound_by']}, plain "
+          f"{ms_sp:.4f} ms, cuSPARSE csr @ X {ms_scs:.4f} ms; kernel vs plain"
+          f" {e_s:.3e})", flush=True)
+    rec_spmm_paged = {"pagerank_pack_f16_ms": ms_sk,
+                      "pagerank_pack_f16_plain_ms": ms_sp,
+                      "pagerank_pack_f16_bound_ms": b_sk["bound_ms"],
+                      "pagerank_pack_f16_cusparse_ms": ms_scs,
+                      "pagerank_pack_parts": op_pr.wp.n_parts,
+                      "pagerank_pack_f16_max_abs_err": float(
+                          (acc_sk - acc_sp).abs().max())}
+    del acc_sk, acc_sp
     print(f"time bfs-100k dense step {ms_bfs:.4f} ms; sssp-pokec dense step "
           f"{ms_ss:.4f} ms ({gops(m.nnz, ms_ss):.2f} GOPS), masked step at "
           f"iteration {k}'s frontier {ms_ssm:.4f} ms", flush=True)
@@ -1040,7 +1177,10 @@ def phase_apps(dev, kernels):
                 "pokec_bound_ms": b_k["bound_ms"], "pagerank_step_ms": ms_pr,
                 "pagerank_cusparse_ms": ms_cs, "sssp_step_ms": ms_ss,
                 "bfs_step_ms": ms_bfs, "sssp_iterations": it_d,
-                "pagerank_rel_err": e_pr, "sssp_rel_err": e_ss}
+                "pagerank_rel_err": e_pr, "sssp_rel_err": e_ss,
+                "pagerank_pack_ms": ms_pk,
+                "pagerank_pack_bound_ms": b_pk["bound_ms"],
+                "pagerank_pack_parts": op_pr.wp.n_parts}
     rec_masked = {"max_abs_err": max(c["masked_max_abs"] for c in cmps),
                   "ms": ms_mk, "plain_ms": ms_mp,
                   **b_m, "library_ms": None,
@@ -1049,7 +1189,252 @@ def phase_apps(dev, kernels):
                   "sssp_masked_step_ms": ms_ssm,
                   "sssp_tiles_per_iteration": sssp_tiles,
                   "bfs_tiles_per_iteration": bfs_tiles}
-    return rec_spmv, rec_masked, launches
+    return rec_spmv, rec_masked, rec_spmm_paged, launches
+
+
+def f64_bcsr(op, X):
+    """A float64 Y = A X on the card from the operator's blocks as stored
+    (rounded to their dtype) and X rounded to that dtype, block products
+    in chunks of 512 blocks: the reference of the BCSR checks."""
+    import torch
+    from hisparse_tpu_torch.ops.bcsr import BS
+    xp = op.padded_x(X).double()
+    k = xp.shape[1]
+    brow = torch.repeat_interleave(
+        torch.arange(op.nbr, device=xp.device),
+        (op.brow_ptr[1:] - op.brow_ptr[:-1]).long())
+    xb = xp.reshape(-1, BS, k)
+    out = torch.zeros(op.nbr, BS, k, dtype=torch.float64, device=xp.device)
+    for c0 in range(0, op.blocks.shape[0], 512):
+        sl = slice(c0, c0 + 512)
+        out.index_add_(0, brow[sl], torch.bmm(op.blocks[sl].double(),
+                                              xb[op.bcol[sl].long()]))
+    return out.reshape(op.nbr * BS, k)[:op.num_rows, :X.shape[1]]
+
+
+def max_rel(a, b) -> float:
+    """max|a - b| / max|b|, in float64."""
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def phase_dispatch(dev, kernels, m_gplus):
+    """Phase 9: the format dispatch at the suite's sizes; returns the BCSR
+    kernel's record, the dispatch rows' record and the launches of the
+    path."""
+    import dataclasses
+    import torch
+    from hisparse_tpu_torch import (BcsrOperator, DenseOperator, SpmmOperator,
+                                    SpmvConfig, SpmvOperator,
+                                    block_structured_csr, choose_format,
+                                    pack, uniform_sparse_csr)
+    from hisparse_tpu_torch.ops.bcsr import bcsr_plain, bcsr_spmm
+    from hisparse_tpu_torch.ops.dense import dense_mm, format_times
+    from hisparse_tpu_torch.ops.golden import (float_to_fixed, spmv_f64,
+                                               spmv_fixed_vec)
+    from hisparse_tpu_torch.ops.spmv import spmv_tiles_plain, wavepack_spmv
+    from hisparse_tpu_torch.utils.bench import device_time_ms, gbps, gops
+    t0 = time.perf_counter()
+    m_b = block_structured_csr(*BCSR16K["shape"],
+                               block_rows=BCSR16K["block_rows"],
+                               seed=BCSR16K["seed"])
+    mats = [("bcsr-spmm-16k", m_b)]
+    for pct in TRANSFORMER_PCTS:
+        d = (100 - pct) / 100.0
+        mats.append((f"transformer_{pct}",
+                     uniform_sparse_csr(512, 33288, int(33288 * d),
+                                        seed=pct)))
+    mats.append(("googleplus", m_gplus))
+    m_f = uniform_sparse_csr(*FIXED_ROW["shape"], seed=FIXED_ROW["seed"])
+    # scaled so that no row sum saturates (bench.py:420-425)
+    m_f = dataclasses.replace(m_f, data=float_to_fixed(
+        np.abs(m_f.data) / (4 * m_f.nnz / m_f.num_rows)))
+    t1 = time.perf_counter()
+    wp_f = pack(m_f, SpmvConfig(**FIXED_CFG), **FIXED_PACK)
+    t2 = time.perf_counter()
+    print(f"dispatch: generate {t1 - t0:.1f} s; fixed row "
+          f"{m_f.num_rows}x{m_f.num_cols} nnz {m_f.nnz}, pack {t2 - t1:.1f} "
+          f"s: tiles {wp_f.num_tiles}, blocks {wp_f.n_blocks}, parts "
+          f"{wp_f.n_parts}, fill {wp_f.fill:.4f}, stream "
+          f"{wp_f.stream_bytes / 1e6:.1f} MB", flush=True)
+
+    # the dispatch on the card's committed rates
+    picks = {}
+    for name, m in mats:
+        tc = time.perf_counter()
+        picks[name] = choose_format(m)
+        dt = time.perf_counter() - tc
+        t = format_times(m, calibrate=False)
+        print(f"choose_format {name}: {m.num_rows}x{m.num_cols} nnz {m.nnz} "
+              f"density {m.nnz / (m.num_rows * m.num_cols):.4f} -> "
+              f"{picks[name]} ({dt:.2f} s); ns/nnz before calibration: "
+              + ", ".join(f"{k} {v:.5f}" for k, v in t.items()), flush=True)
+
+    # the operators of the path: bcsr-spmm-16k through BcsrOperator (bf16,
+    # bench.py:906, whatever the pick, as bench.py's row runs it), each
+    # transformer matrix that the dispatch sends to dense through
+    # DenseOperator (bf16, bench.py:563), the fixed row through
+    # SpmvOperator
+    op_b = BcsrOperator(m_b, torch.bfloat16, device=dev)
+    X = torch.from_numpy(np.random.default_rng(1).random(
+        (m_b.num_cols, BCSR_RHS)).astype(np.float32)).to(dev)
+    dense = {name: (m, DenseOperator(m, "bf16", device=dev))
+             for name, m in mats
+             if name.startswith("transformer") and picks[name] == "dense"}
+    x_t = torch.from_numpy(np.random.default_rng(0).random(33288).astype(
+        np.float32)).to(dev)
+    op_f = SpmvOperator(wp_f, device=dev)
+    x_f = float_to_fixed(np.random.default_rng(0).random(
+        m_f.num_cols).astype(np.float32))
+    print(f"bcsr-spmm-16k: {op_b.blocks.shape[0]} blocks of 128x128, block "
+          f"fill {op_b.block_fill:.4f}, {op_b.stream_bytes / 1e6:.1f} MB in "
+          f"bf16; dense picks {sorted(dense)}", flush=True)
+    torch.cuda.synchronize()
+
+    # the main path, counted
+    reset_counts(kernels)
+    y_f = op_f(x_f)
+    Y = op_b(X)
+    ys = {name: op(x_t) for name, (_, op) in dense.items()}
+    torch.cuda.synchronize()
+    launches = counts(kernels)
+    print(f"dispatch: launches {launches}", flush=True)
+    check(launches["bcsr"] > 0 and launches["wavepack_spmv"] > 0,
+          f"the dispatch path's kernel counts {launches}")
+
+    # the fixed row: bit for bit
+    ref_f = spmv_fixed_vec(m_f, x_f, m_f.data)
+    ok_f = bool(np.array_equal(y_f.numpy(), ref_f))
+    args_f = op_f.stream_args(family_x(op_f, x_f, dev))
+    acc_f = wavepack_spmv(*args_f, op_f.cfg)
+    ok_fk = exact(acc_f, spmv_tiles_plain(*args_f, op_f.cfg))
+    print(f"fixed row: y == spmv_fixed_vec {ok_f}; kernel == plain {ok_fk}",
+          flush=True)
+    check(ok_f and ok_fk, f"fixed row: y {ok_f}, kernel vs plain {ok_fk}")
+
+    # bcsr-spmm-16k against float64 and the plain version
+    check(Y.shape == (m_b.num_rows, BCSR_RHS) and bool(
+        torch.isfinite(Y).all()), f"bcsr Y {tuple(Y.shape)} not finite")
+    e_y = max_rel(Y, f64_bcsr(op_b, X))
+    xp = op_b.padded_x(X)
+    bargs = (op_b.blocks, op_b.brow_ptr, op_b.bcol, xp)
+    out_k, out_p = bcsr_spmm(*bargs), bcsr_plain(*bargs)
+    max_abs_b = float((out_k - out_p).abs().max())
+    e_kp = max_abs_b / float(out_p.abs().max())
+    print(f"bcsr-spmm-16k bf16: Y vs f64 of the rounded operands {e_y:.3e}, "
+          f"kernel vs plain max|d| {max_abs_b:.3e} = {e_kp:.3e} of max|Y| "
+          f"(gates {TOL_F64})", flush=True)
+    check(e_y <= TOL_F64 and e_kp <= TOL_F64,
+          f"bcsr bf16: vs f64 {e_y}, kernel vs plain {e_kp}")
+    op_b32 = BcsrOperator(m_b, torch.float32, device=dev)
+    e_32 = {}
+    for k in (1, BCSR_RHS):
+        Xk = X[:, :k]
+        Yk = op_b32(Xk[:, 0] if k == 1 else Xk)
+        e_32[k] = max_rel(Yk.reshape(m_b.num_rows, k), f64_bcsr(op_b32, Xk))
+    print(f"bcsr-spmm-16k fp32 blocks: vs f64 k=1 {e_32[1]:.3e}, k={BCSR_RHS} "
+          f"{e_32[BCSR_RHS]:.3e} (gate {TOL_F64})", flush=True)
+    check(max(e_32.values()) <= TOL_F64, f"bcsr fp32 vs f64 {e_32}")
+    del op_b32
+
+    # the dense picks against float64 of the rounded operands
+    e_d = {}
+    for name, (m, op) in dense.items():
+        xp_d = op.padded(x_t)
+        ref = (op.a.double() @ xp_d.double())[:m.num_rows, 0]
+        e_d[name] = max_rel(ys[name], ref)
+    print("dense picks vs f64 of the rounded operands: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in e_d.items()), flush=True)
+    check(all(v <= TOL_F64 for v in e_d.values()), f"dense vs f64 {e_d}")
+
+    # times: the BCSR kernel beside its bound and the yardsticks
+    ms_bk = device_time_ms(lambda: bcsr_spmm(*bargs), reps=20, queued=True)
+    ms_bp = device_time_ms(lambda: bcsr_plain(*bargs), reps=3, warmup=1)
+    nb = op_b.blocks.shape[0]
+    b_b = bound(nbytes(*bargs, out_k), 2.0 * nb * 128 * 128 * BCSR_RHS,
+                "bf16_tensor")
+    a_cs = csr_tensor(m_b, dev)
+    ms_cs = device_time_ms(lambda: torch.sparse.mm(a_cs, X), reps=20)
+    bsr = torch.sparse_bsr_tensor(op_b.brow_ptr.long(), op_b.bcol.long(),
+                                  op_b.blocks, size=(op_b.nbr * 128,
+                                                     op_b.nbc * 128),
+                                  check_invariants=False)
+    e_bsr = max_rel((bsr @ xp)[:m_b.num_rows, :BCSR_RHS].float(), out_p[
+        :m_b.num_rows, :BCSR_RHS])
+    ms_bsr = device_time_ms(lambda: bsr @ xp, reps=20)
+    del a_cs, bsr
+    # the dense arm on the same product, the dispatch's other candidate
+    op_sd = SpmmOperator(m_b, "bf16", device=dev)
+    e_sd = max_rel(op_sd(X), out_p[:m_b.num_rows, :BCSR_RHS])
+    ms_sd = device_time_ms(lambda: op_sd(X), reps=20)
+    b_sd = bound(op_sd.inner.stream_bytes + nbytes(X) // 2
+                 + nbytes(out_p), 2.0 * op_sd.inner.a.numel() * BCSR_RHS,
+                 "bf16_tensor")
+    del op_sd
+    print(f"time bcsr-spmm-16k dense arm (SpmmOperator bf16, "
+          f"{m_b.num_rows}x{m_b.num_cols}): {ms_sd:.4f} ms, bound "
+          f"{b_sd['bound_ms']:.4f} ms ({b_sd['bound_by']}); vs the BCSR "
+          f"plain version {e_sd:.2e}", flush=True)
+    print(f"time bcsr-spmm-16k ({BCSR_RHS} rhs): kernel {ms_bk:.4f} ms "
+          f"({gops(m_b.nnz * BCSR_RHS, ms_bk):.1f} GOPS of the true nonzeros,"
+          f" {gbps(op_b.stream_bytes, ms_bk):.1f} GB/s of blocks); bound "
+          f"{b_b['bound_ms']:.4f} ms ({b_b['bound_by']}), "
+          f"{b_b['bound_ms'] / ms_bk:.3f} of it; plain {ms_bp:.4f} ms; "
+          f"cuSPARSE csr fp32 @ X {ms_cs:.4f} ms; torch bsr bf16 @ X "
+          f"{ms_bsr:.4f} ms (vs plain {e_bsr:.2e})", flush=True)
+
+    # times: the fixed row's kernel
+    ms_fk = device_time_ms(lambda: wavepack_spmv(*args_f, op_f.cfg), reps=50,
+                           queued=True)
+    ms_fp = device_time_ms(lambda: spmv_tiles_plain(*args_f, op_f.cfg),
+                           reps=3, warmup=1)
+    ms_ff = device_time_ms(lambda: op_f(x_f), reps=20)
+    b_f = spmv_bound(args_f, acc_f)
+    print(f"time fixed row: kernel {ms_fk:.4f} ms ({gops(m_f.nnz, ms_fk):.2f}"
+          f" GOPS, {gbps(wp_f.stream_bytes, ms_fk):.1f} GB/s); bound "
+          f"{b_f['bound_ms']:.4f} ms ({b_f['bound_by']}), "
+          f"{b_f['bound_ms'] / ms_fk:.3f} of it; plain {ms_fp:.4f} ms; "
+          f"forward with the host recombine {ms_ff:.4f} ms", flush=True)
+
+    # times: each dense pick's forward beside its bound and the wavepack
+    # forward of the same matrix
+    rows = {}
+    for name, (m, op) in dense.items():
+        xp_d = op.padded(x_t)
+        ms_dk = device_time_ms(lambda: dense_mm(op.a, xp_d), reps=50,
+                               queued=True)
+        ms_df = device_time_ms(lambda: op(x_t), reps=50)
+        b_d = bound(op.stream_bytes + nbytes(xp_d) + 4 * op.a.shape[0],
+                    2.0 * op.a.numel(), "bf16_tensor")
+        # the wavepack forward at the transformer-70 training row's config
+        tp = time.perf_counter()
+        op_w = SpmvOperator(pack(m, SpmvConfig(**T70_CFG)), device=dev)
+        t_pack = time.perf_counter() - tp
+        e_w = rel_err(to_np(op_w(x_t)), spmv_f64(m, to_np(x_t)))
+        check(e_w <= TOL_F64, f"{name} wavepack forward vs f64 {e_w}")
+        ms_w = device_time_ms(lambda: op_w(x_t), reps=50)
+        rows[name] = {"dense_mm_ms": ms_dk, "dense_forward_ms": ms_df,
+                      "dense_bound_ms": b_d["bound_ms"],
+                      "wavepack_forward_ms": ms_w,
+                      "wavepack_stream_mb": op_w.wp.stream_bytes / 1e6}
+        print(f"time {name} dense bf16: mm {ms_dk:.4f} ms, forward "
+              f"{ms_df:.4f} ms ({gops(m.nnz, ms_df):.1f} GOPS), bound "
+              f"{b_d['bound_ms']:.4f} ms ({b_d['bound_by']}); wavepack "
+              f"forward {ms_w:.4f} ms ({gops(m.nnz, ms_w):.1f} GOPS, "
+              f"{op_w.wp.stream_bytes / 1e6:.1f} MB, pack {t_pack:.1f} s, "
+              f"vs f64 {e_w:.2e})", flush=True)
+        del op_w
+    rec_bcsr = {"max_abs_err": max_abs_b, "ms": ms_bk, "plain_ms": ms_bp,
+                **b_b, "library_ms": ms_cs, "library_bsr_bf16_ms": ms_bsr,
+                "rel_err_kernel_vs_plain": e_kp, "rel_err_f64": e_y,
+                "dense_arm_ms": ms_sd, "dense_arm_bound_ms": b_sd["bound_ms"],
+                "fp32_rel_err_f64": {str(k): v for k, v in e_32.items()},
+                "blocks": nb, "block_fill": op_b.block_fill}
+    rec_rows = {"picks": picks, "fixed_row_ms": ms_fk,
+                "fixed_row_plain_ms": ms_fp, "fixed_row_forward_ms": ms_ff,
+                "fixed_row_bound_ms": b_f["bound_ms"],
+                "fixed_row_gops": gops(m_f.nnz, ms_fk), "dense": rows}
+    return rec_bcsr, rec_rows, launches
 
 
 def main() -> None:
@@ -1079,43 +1464,53 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     print_registers(_kernels.register_counts())
-    print(f"build: ptxas -v of both sources {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    print(f"build: ptxas -v of the {len(_kernels.LIBRARIES)} sources "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     check(native.available(), "the native packer did not build (g++)")
     print(f"build: native packer {time.perf_counter() - t0:.1f} s",
           flush=True)
+    from hisparse_tpu_torch.models.perf_model import RATES_PATH, card_rates
+    rated = card_rates()["device"]
+    print(f"rates: {RATES_PATH.rsplit('/', 3)[-3:]} measured on {rated!r}; "
+          f"this card {'matches' if rated == smi.strip() else 'differs'}",
+          flush=True)
 
     dev = torch.device("cuda")
-    worst = phase_families(dev)                          # phase 3
+    fams = phase_families(dev)                           # phase 3
     m, rec_spmv, l_serve = phase_serving(dev, _kernels)  # phase 4
     worst_g, worst_s = phase_kernel_families(dev)        # phase 5
     semiring = phase_semiring_families(dev)
     rec_grad, rec_train_spmv, l_train = phase_training(
         dev, _kernels)                                   # phase 6
     rec_spmm, l_gcn = phase_gcn(dev, _kernels, m)        # phase 7
+    rec_apps, rec_masked, rec_spmm_paged, l_apps = phase_apps(
+        dev, _kernels)                                   # phase 8
+    rec_bcsr, rec_rows, l_dispatch = phase_dispatch(
+        dev, _kernels, m)                                # phase 9
     del m
-    rec_apps, rec_masked, l_apps = phase_apps(dev, _kernels)  # phase 8
 
     paths = {"serving": l_serve, "training": l_train, "gcn": l_gcn,
-             "apps": l_apps}
+             "apps": l_apps, "dispatch": l_dispatch}
     src = "hisparse_tpu_torch/csrc/"
     ref = "hisparse_tpu/ops/spmv.py"
     # the SpMV kernel's max_abs_err covers googleplus, the training packs
     # and the apps' packs (bit-equal there)
     rec_spmv = dict(rec_spmv, max_abs_err=max(
         rec_spmv["max_abs_err"], rec_train_spmv["max_abs_err"],
-        rec_apps["max_abs_err"]), training=rec_train_spmv, apps=rec_apps)
+        rec_apps["max_abs_err"]), training=rec_train_spmv, apps=rec_apps,
+        dispatch=rec_rows)
     # each kernel's source and every TPU kernel body it replaces
     rows = [
         ("wavepack_spmv", "wavepack_spmv.cu", f"{ref}:258, {ref}:295",
-         rec_spmv, {"worst_family_rel_err": worst, **semiring}),
+         rec_spmv, {**fams, **semiring}),
         ("wavepack_gradstream", "wavepack_gradstream.cu", f"{ref}:516",
          rec_grad, {"worst_family_rel_err": worst_g}),
         ("wavepack_spmm", "wavepack_spmv.cu", f"{ref}:325, {ref}:363",
-         rec_spmm, {"worst_family_rel_err": worst_s}),
+         rec_spmm, {"worst_family_rel_err": worst_s, **rec_spmm_paged}),
         ("wavepack_spmv_masked", "wavepack_spmv.cu", f"{ref}:497, {ref}:509",
          rec_masked, {}),
+        ("bcsr", "bcsr.cu", "hisparse_tpu/ops/bcsr.py:56", rec_bcsr, {}),
     ]
     record = {"kernels": []}
     for name, source, replaces, rec, extra in rows:
@@ -1126,7 +1521,7 @@ def main() -> None:
             launches_by_path={k: p[name] for k, p in paths.items()},
             **rec, **extra)
         record["kernels"].append(entry)
-    print(f"chip_smoke: phases 1-8 in {time.perf_counter() - t_start:.1f} s",
+    print(f"chip_smoke: phases 1-9 in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,15 +2,19 @@
 
 The wavepack format, its packer, the packed-stream SpMV main path
 (``pack`` -> ``SpmvOperator`` -> natural-order y) in the plus_times,
-min_plus and max_times semirings, SpMM and the masked (SpMSpV) call, the
-training paths (``DiffSpmv``, ``StreamDiffSpmv``, ``DiffSpmm``, ``GCN``)
-and the graph apps (``PageRank``, ``SSSP``, ``BFS``) for an NVIDIA H100.
-The host layers are copies of the JAX package's (numpy and the native C++
-scheduler); the TPU's Pallas kernels on these paths become CUDA C++
-kernels (``csrc/wavepack_spmv.cu``, SpMV, SpMM and masked SpMV, and
-``csrc/wavepack_gradstream.cu``).  Entry points run on the card unless
-the caller asks for the CPU (``device="cpu"``).  This package imports
-neither JAX nor ``hisparse_tpu``.
+min_plus and max_times semirings over fp32 values and in plus_times over
+bf16 and saturating Q8.24 values, SpMM and the masked (SpMSpV) call, the
+training paths (``DiffSpmv``, ``StreamDiffSpmv``, ``DiffSpmm``, ``GCN``),
+the graph apps (``PageRank``, ``SSSP``, ``BFS``) and the format dispatch
+(``choose_format`` between wavepack, ``BcsrOperator`` and
+``DenseOperator`` / ``SpmmOperator``, on the perf model and rates
+measured on the card) for an NVIDIA H100.  The host layers are copies of
+the JAX package's (numpy and the native C++ scheduler); the TPU's Pallas
+kernels become CUDA C++ kernels (``csrc/wavepack_spmv.cu``, SpMV, SpMM
+and masked SpMV; ``csrc/wavepack_gradstream.cu``; ``csrc/bcsr.cu``).
+Entry points run on the card unless the caller asks for the CPU
+(``device="cpu"``).  This package imports neither JAX, ``hisparse_tpu``
+nor ``ml_dtypes``: bf16 streams are carried as their uint16 bit patterns.
 """
 from .config import LANES, SpmvConfig, GRAPH_CONFIG, NN_CONFIG
 from .formats.csr import (CSRMatrix, load_npz, save_npz, round_dims,
@@ -22,6 +26,8 @@ from .formats.wavepack import (Wavepack, pack, decode, save_wavepack,
 from .interop import (wavepack_from_arrays, stream_from_jax,
                       gcn_params_from_jax)
 from .ops.spmv import SpmvOperator, spmv, spmm
+from .ops.bcsr import BcsrOperator
+from .ops.dense import DenseOperator, SpmmOperator, choose_format
 from .ops.autodiff import DiffSpmv
 from .ops.train_stream import StreamDiffSpmv
 from .models.gnn import DiffSpmm, GCN, gcn_normalize
@@ -35,8 +41,9 @@ __all__ = [
     "powerlaw_csr", "rmat_csr", "block_structured_csr", "Wavepack", "pack",
     "decode", "save_wavepack", "load_wavepack", "wavepack_from_arrays",
     "stream_from_jax", "gcn_params_from_jax",
-    "SpmvOperator", "spmv", "spmm", "DiffSpmv", "StreamDiffSpmv",
+    "SpmvOperator", "spmv", "spmm", "BcsrOperator", "DenseOperator",
+    "SpmmOperator", "choose_format", "DiffSpmv", "StreamDiffSpmv",
     "DiffSpmm", "GCN", "gcn_normalize", "PageRank", "SSSP", "BFS",
     "pagerank", "pagerank_reference", "sssp_reference",
 ]
-__version__ = "0.3.0"
+__version__ = "0.4.0"

@@ -1,8 +1,10 @@
 // Wavepack routing, shared by every wavepack kernel (the SpMV / SpMM
 // kernel of wavepack_spmv.cu and wavepack_gradstream.cu), so that their
 // decodes cannot drift apart.  It is the CUDA form of the TPU helpers _route_x and
-// _tile_routed (hisparse_tpu/ops/spmv.py) for fp32 packs, and of
-// route_plain in hisparse_tpu_torch/ops/spmv.py.
+// _tile_routed (hisparse_tpu/ops/spmv.py), and of route_plain in
+// hisparse_tpu_torch/ops/spmv.py.  bf16 and Q8.24 packs never steal
+// mantissa bits (config.py), so they route as fp32 packs without
+// steal_mantissa do.
 //
 // A CTA owns kRows consecutive sublanes s0 .. s0 + kRows - 1 of one tile
 // (kRows * 128 threads, lane l fastest).  Per tile it stages the idx words

@@ -1,7 +1,8 @@
-// Wavepack SpMV, SpMM and masked SpMV for Hopper (sm_90a): fp32 semiring
+// Wavepack SpMV, SpMM and masked SpMV for Hopper (sm_90a): semiring
 // products over a packed tile stream, for one vector (SpMV), up to kMaxF
 // feature columns (SpMM) in one pass, or one vector over a selected subset
-// of the tiles (the masked SpMSpV analog).
+// of the tiles (the masked SpMSpV analog).  Stream values are fp32, bf16
+// (widened to fp32 on load) or saturating unsigned Q8.24.
 //
 // Replaces six TPU kernels, hisparse_tpu/ops/spmv.py: _resident_kernel and
 // _paged_kernel (with their helpers _acc_init, _route_x, _tile_routed and
@@ -24,10 +25,16 @@
 //
 // from the semiring's identity, with vals' the value cleaned of its stolen
 // bits and (blk, src, h) the routing of slot (s, l) of tile t (route.cuh).
-// The semiring (kSr) is plus_times (acc + v*x, from 0), min_plus
-// (min(acc, v + x), from +inf) or max_times (max(acc, v*x), from -inf);
-// each operation is rounded once (__fmul_rn, __fadd_rn), as the plain
-// PyTorch versions do.  min and max take the new term when it is smaller
+// The algebra (kSr) is plus_times (acc + v*x, from 0), min_plus
+// (min(acc, v + x), from +inf), max_times (max(acc, v*x), from -inf) or,
+// for Q8.24 packs, fixed (the saturating multiply-add of
+// ap_ufixed<32,8,AP_RND,AP_SAT>, from 0; acc, v and x are Q8.24 words).
+// Each float operation is rounded once (__fmul_rn, __fadd_rn), as the
+// plain PyTorch versions do; a bf16 value is widened exactly and x and the
+// accumulator stay fp32, as in the TPU kernel (_tile_routed).  The fixed
+// madd forms p = v*x + 2^23 in 64 bits (it cannot wrap: p < 2^64), takes
+// p >> 24, saturated to 0xFFFFFFFF when p >= 2^56, and adds with
+// saturation: bit for bit _fixed_madd.  min and max take the new term when it is smaller
 // (larger) or NaN, so a NaN propagates as torch.minimum and jnp.minimum
 // propagate it; fminf and fmaxf would drop it.  A block's run is its
 // contiguous tile run of the stream, or with kMasked its run into the
@@ -49,8 +56,8 @@
 // costs no device-memory traffic.
 //
 // What bounds it.  Every slot of the stream (or of the selected tiles) is
-// read once for all F features: 4 B of value plus 2 B (idx16) or 4 B of
-// idx word, 6 B/slot with idx16.  At F = 1 XT and the tile metadata are
+// read once for all F features: 4 B of value (2 B in bf16) plus 2 B
+// (idx16) or 4 B of idx word, 6 B/slot with idx16 or bf16 values.  At F = 1 XT and the tile metadata are
 // small and stay in L2, and the output is 4 B per slot of one tile, so the
 // stream's bytes over HBM bandwidth bound the kernel.  The design reads
 // values coalesced (128 consecutive floats per sublane) and reads each idx
@@ -64,6 +71,8 @@
 // (8 MB at F = 16, CT = 8): at F = 16 the gathers, not the stream, set the
 // time.  Staging a tile's XT slice in shared memory is later work.
 #include <cstdint>
+#include <type_traits>
+
 #include <cuda_runtime.h>
 
 #include "route.cuh"
@@ -74,56 +83,86 @@ using namespace wavepack;
 
 constexpr int kMaxF = 16;                // features in registers
 
-// the semiring of kernel template argument kSr; the values are the ones
-// ops/_kernels.py passes
+// the algebra of kernel template argument kSr; the first three are the
+// semiring values ops/_kernels.py passes, kFixed follows from vtype
 constexpr int kPlusTimes = 0;
 constexpr int kMinPlus = 1;
 constexpr int kMaxTimes = 2;
+constexpr int kFixed = 3;
+// the stream value types of the vtype argument (ops/_kernels.py)
+constexpr int kF32 = 0;
+constexpr int kBf16 = 1;
+constexpr int kQ824 = 2;
+
+// the accumulator, x and product type of algebra kSr
+template <int kSr>
+using Acc = typename std::conditional<kSr == kFixed, uint32_t, float>::type;
 
 struct Params {
-  const uint32_t* vals;                  // (T, S, 128) fp32 bits
+  const void* vals;                      // (T, S, 128) fp32, bf16 or Q8.24
   const void* idxT;                      // (T, S, 128) int16 or int32
   const int32_t* tile_ids;               // (n_sel,), masked only
   const int32_t* tile_part;              // (T,)
   const int32_t* cmap;                   // (T, S/128, K), block-major only
   const int32_t* run_start;              // (n_blocks,)
   const int32_t* run_end;                // (n_blocks,)
-  const float* xt;                       // (n_parts, F, CT, 128, 128)
-  float* out;                            // (F, n_blocks * S, 128)
+  const void* xt;                        // (n_parts, F, CT, 128, 128) Acc
+  void* out;                             // (F, n_blocks * S, 128) Acc
   int n_blocks, S, n_ops, K, CT, F;
 };
 
 template <int kSr>
-__device__ __forceinline__ float identity() {
-  return kSr == kMinPlus ? __int_as_float(0x7f800000)      // +inf
-         : kSr == kMaxTimes ? __int_as_float(0xff800000)   // -inf
-                            : 0.0f;
+__device__ __forceinline__ Acc<kSr> identity() {
+  if constexpr (kSr == kFixed) {
+    return 0u;
+  } else {
+    return kSr == kMinPlus ? __int_as_float(0x7f800000)      // +inf
+           : kSr == kMaxTimes ? __int_as_float(0xff800000)   // -inf
+                              : 0.0f;
+  }
 }
 
-// acc (+) v (x) x, each operation rounded once; min and max keep a NaN
-template <int kSr>
-__device__ __forceinline__ float combine(float acc, float v, float x) {
-  if (kSr == kMinPlus) {
+// a stored value as a 32-bit word: fp32 and Q8.24 words as they are, a
+// bf16 value widened exactly to the fp32 bits it stands for
+__device__ __forceinline__ uint32_t widen(uint32_t w) { return w; }
+__device__ __forceinline__ uint32_t widen(uint16_t h) {
+  return static_cast<uint32_t>(h) << 16;
+}
+
+// acc (+) v (x) x: floats rounded once an operation, min and max keeping a
+// NaN; Q8.24 with round-half-up and saturation (see the header)
+template <int kSr, typename T>
+__device__ __forceinline__ T combine(T acc, T v, T x) {
+  if constexpr (kSr == kFixed) {
+    const uint64_t prod = static_cast<uint64_t>(v) * x + (1u << 23);
+    const uint32_t t = (prod >> 56) ? 0xFFFFFFFFu
+                                    : static_cast<uint32_t>(prod >> 24);
+    const uint32_t s = acc + t;
+    return s < acc ? 0xFFFFFFFFu : s;
+  } else if constexpr (kSr == kMinPlus) {
     const float t = __fadd_rn(v, x);
     return (t < acc || isnan(t)) ? t : acc;
-  }
-  if (kSr == kMaxTimes) {
+  } else if constexpr (kSr == kMaxTimes) {
     const float t = __fmul_rn(v, x);
     return (t > acc || isnan(t)) ? t : acc;
+  } else {
+    return __fadd_rn(acc, __fmul_rn(v, x));
   }
-  return __fadd_rn(acc, __fmul_rn(v, x));
 }
 
 // kF accumulators a thread, of which the first p.F are live (p.F == 1
 // when kF == 1, and the SpMV code is then free of the feature loop).
-template <typename IdxT, bool kSteal, bool kBlockMajor, int kF, int kSr,
-          bool kMasked>
+// ValT is the stored value word: uint32_t (fp32 or Q8.24) or uint16_t
+// (bf16).
+template <typename ValT, typename IdxT, bool kSteal, bool kBlockMajor,
+          int kF, int kSr, bool kMasked>
 __global__ void __launch_bounds__(kThreads)
 wavepack_kernel(const Params p) {
-  const uint32_t* __restrict__ vals = p.vals;
+  using A = Acc<kSr>;
+  const ValT* __restrict__ vals = static_cast<const ValT*>(p.vals);
   const IdxT* __restrict__ idxT = static_cast<const IdxT*>(p.idxT);
   const int32_t* __restrict__ tile_part = p.tile_part;
-  const float* __restrict__ xt = p.xt;
+  const A* __restrict__ xt = static_cast<const A*>(p.xt);
   const int S = p.S;
   const int F = kF == 1 ? 1 : p.F;
   const int chunks = S / kRows;
@@ -136,7 +175,7 @@ wavepack_kernel(const Params p) {
   const int64_t page = static_cast<int64_t>(p.CT) * kPage;
 
   __shared__ int32_t sidx[kLanes][kRows];
-  float acc[kF];
+  A acc[kF];
 #pragma unroll
   for (int f = 0; f < kF; ++f) acc[f] = identity<kSr>();
   const int i_end = p.run_end[b];
@@ -145,11 +184,17 @@ wavepack_kernel(const Params p) {
     const int64_t tile = static_cast<int64_t>(t) * S * kLanes;
     stage_idx(sidx, idxT, tile, s0);
     __syncthreads();
-    uint32_t vbits = vals[tile + static_cast<int64_t>(s) * kLanes + l];
+    uint32_t vbits =
+        widen(vals[tile + static_cast<int64_t>(s) * kLanes + l]);
     const int off = route<kSteal, kBlockMajor>(vbits, sidx, rr, l, t, s0,
                                                p.cmap, G, p.K, p.n_ops);
-    const float v = __uint_as_float(vbits);
-    const float* __restrict__ xf =
+    A v;
+    if constexpr (kSr == kFixed) {
+      v = vbits;
+    } else {
+      v = __uint_as_float(vbits);
+    }
+    const A* __restrict__ xf =
         xt + static_cast<int64_t>(tile_part[t]) * F * page + off;
 #pragma unroll
     for (int f = 0; f < kF; ++f) {
@@ -158,36 +203,63 @@ wavepack_kernel(const Params p) {
     __syncthreads();
   }
   const int64_t stride = static_cast<int64_t>(p.n_blocks) * S * kLanes;
-  float* out = p.out + (static_cast<int64_t>(b) * S + s) * kLanes + l;
+  A* out = static_cast<A*>(p.out) + (static_cast<int64_t>(b) * S + s) *
+                                        kLanes + l;
 #pragma unroll
   for (int f = 0; f < kF; ++f) {
     if (f < F) out[f * stride] = acc[f];
   }
 }
 
-// Launches the instantiation for the run-time semiring and pack flags;
-// returns false, launching nothing, for a combination the packer refuses
-// (config.py): min_plus with steal_mantissa (or idx16, which needs it),
-// idx16 without steal_mantissa, an unknown semiring.
+// Launches the instantiation for the run-time semiring, value type and
+// pack flags; returns false, launching nothing, for a combination the
+// packer refuses (config.py): min_plus with steal_mantissa (or idx16, which
+// needs it), idx16 without steal_mantissa, a bf16 or Q8.24 stream with
+// steal_mantissa or another semiring than plus_times, an unknown semiring
+// or value type; and for Q8.24 SpMM or masked SpMV, which the JAX package
+// refuses too.
 template <int kF, bool kMasked>
-bool launch(const Params& p, int semiring, bool idx16, bool steal,
-            bool block_major, cudaStream_t st) {
+bool launch(const Params& p, int semiring, int vtype, bool idx16,
+            bool steal, bool block_major, cudaStream_t st) {
   const dim3 grid(p.n_blocks * (p.S / kRows));
-  bool ok = semiring == kPlusTimes || semiring == kMaxTimes ||
-            (semiring == kMinPlus && !steal);
+  if (vtype == kBf16 || vtype == kQ824) {
+    if (semiring != kPlusTimes || steal || idx16 ||
+        (vtype == kQ824 && (kF != 1 || kMasked))) {
+      return false;
+    }
+    auto go = [&](auto bm) {
+      constexpr bool kBm = decltype(bm)::value;
+      if (vtype == kBf16) {
+        wavepack_kernel<uint16_t, int32_t, false, kBm, kF, kPlusTimes,
+                        kMasked><<<grid, kThreads, 0, st>>>(p);
+      } else if constexpr (kF == 1 && !kMasked) {
+        wavepack_kernel<uint32_t, int32_t, false, kBm, 1, kFixed, false>
+            <<<grid, kThreads, 0, st>>>(p);
+      }
+    };
+    if (block_major) {
+      go(std::true_type{});
+    } else {
+      go(std::false_type{});
+    }
+    return true;
+  }
+  bool ok = vtype == kF32 &&
+            (semiring == kPlusTimes || semiring == kMaxTimes ||
+             (semiring == kMinPlus && !steal));
   ok = ok && dispatch(idx16, steal, block_major,
                       [&](auto idx, auto st_, auto bm) {
     using Idx = decltype(idx);
     constexpr bool kSt = decltype(st_)::value;
     constexpr bool kBm = decltype(bm)::value;
     if (semiring == kPlusTimes) {
-      wavepack_kernel<Idx, kSt, kBm, kF, kPlusTimes, kMasked>
+      wavepack_kernel<uint32_t, Idx, kSt, kBm, kF, kPlusTimes, kMasked>
           <<<grid, kThreads, 0, st>>>(p);
     } else if (semiring == kMaxTimes) {
-      wavepack_kernel<Idx, kSt, kBm, kF, kMaxTimes, kMasked>
+      wavepack_kernel<uint32_t, Idx, kSt, kBm, kF, kMaxTimes, kMasked>
           <<<grid, kThreads, 0, st>>>(p);
     } else if constexpr (!kSt) {
-      wavepack_kernel<Idx, kSt, kBm, kF, kMinPlus, kMasked>
+      wavepack_kernel<uint32_t, Idx, kSt, kBm, kF, kMinPlus, kMasked>
           <<<grid, kThreads, 0, st>>>(p);
     }
   });
@@ -199,14 +271,13 @@ Params make_params(const void* vals, const void* idxT, const void* tile_ids,
                    const void* run_start, const void* run_end,
                    const void* xt, void* out, int n_blocks, int S, int n_ops,
                    int K, int CT, int F) {
-  return Params{static_cast<const uint32_t*>(vals), idxT,
+  return Params{vals, idxT,
                 static_cast<const int32_t*>(tile_ids),
                 static_cast<const int32_t*>(tile_part),
                 static_cast<const int32_t*>(cmap),
                 static_cast<const int32_t*>(run_start),
                 static_cast<const int32_t*>(run_end),
-                static_cast<const float*>(xt), static_cast<float*>(out),
-                n_blocks, S, n_ops, K, CT, F};
+                xt, out, n_blocks, S, n_ops, K, CT, F};
 }
 
 int result(bool ok) {
@@ -219,32 +290,37 @@ int result(bool ok) {
 // C entry points, loaded with ctypes (ops/_kernels.py).  Shapes: vals and
 // idxT (T, S, 128); tile_part (T,); cmap (T, S/128, K) or null; run_start
 // and run_end (n_blocks,).  semiring: 0 plus_times, 1 min_plus, 2
-// max_times.  Each returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue, launching nothing, for operands it refuses.
+// max_times.  vtype: 0 fp32 values, 1 bf16 values (x and out fp32), 2
+// Q8.24 values (x and out Q8.24 words too).  Each returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue, launching
+// nothing, for operands it refuses.
 //
 // SpMV: xt (n_parts, CT, 128, 128); out (n_blocks*S, 128).
-extern "C" int wavepack_spmv_f32(const void* vals, const void* idxT,
-                                 int idx16, int steal, int block_major,
-                                 int semiring, const void* tile_part,
-                                 const void* cmap, const void* run_start,
-                                 const void* run_end, const void* xt,
-                                 void* out, int n_blocks, int S, int n_ops,
-                                 int K, int CT, void* stream) {
+extern "C" int wavepack_spmv_launch(const void* vals, const void* idxT,
+                                    int idx16, int steal, int block_major,
+                                    int semiring, int vtype,
+                                    const void* tile_part, const void* cmap,
+                                    const void* run_start,
+                                    const void* run_end, const void* xt,
+                                    void* out, int n_blocks, int S,
+                                    int n_ops, int K, int CT, void* stream) {
   if (S % kLanes != 0 || n_blocks < 1 || n_ops < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Params p = make_params(vals, idxT, nullptr, tile_part, cmap,
                                run_start, run_end, xt, out, n_blocks, S,
                                n_ops, K, CT, 1);
-  return result(launch<1, false>(p, semiring, idx16, steal, block_major,
+  return result(launch<1, false>(p, semiring, vtype, idx16, steal,
+                                 block_major,
                                  static_cast<cudaStream_t>(stream)));
 }
 
 // Masked SpMV: tile_ids (n_sel,) the selected tiles in stream order;
-// run_start / run_end each block's run into tile_ids; otherwise as SpMV.
-extern "C" int wavepack_spmv_masked_f32(
+// run_start / run_end each block's run into tile_ids; otherwise as SpMV
+// (fp32 and bf16 streams).
+extern "C" int wavepack_spmv_masked_launch(
     const void* vals, const void* idxT, int idx16, int steal,
-    int block_major, int semiring, const void* tile_ids,
+    int block_major, int semiring, int vtype, const void* tile_ids,
     const void* tile_part, const void* cmap, const void* run_start,
     const void* run_end, const void* xt, void* out, int n_blocks, int S,
     int n_ops, int K, int CT, void* stream) {
@@ -254,28 +330,32 @@ extern "C" int wavepack_spmv_masked_f32(
   const Params p = make_params(vals, idxT, tile_ids, tile_part, cmap,
                                run_start, run_end, xt, out, n_blocks, S,
                                n_ops, K, CT, 1);
-  return result(launch<1, true>(p, semiring, idx16, steal, block_major,
+  return result(launch<1, true>(p, semiring, vtype, idx16, steal,
+                                block_major,
                                 static_cast<cudaStream_t>(stream)));
 }
 
 // SpMM: xt (n_parts, F, CT, 128, 128); out (F, n_blocks*S, 128),
-// 1 <= F <= 16.
-extern "C" int wavepack_spmm_f32(const void* vals, const void* idxT,
-                                 int idx16, int steal, int block_major,
-                                 int semiring, const void* tile_part,
-                                 const void* cmap, const void* run_start,
-                                 const void* run_end, const void* xt,
-                                 void* out, int n_blocks, int S, int n_ops,
-                                 int K, int CT, int F, void* stream) {
-  if (S % kLanes != 0 || n_blocks < 1 || n_ops < 1 || F < 1 || F > kMaxF) {
+// 1 <= F <= 16 (fp32 and bf16 streams).
+extern "C" int wavepack_spmm_launch(const void* vals, const void* idxT,
+                                    int idx16, int steal, int block_major,
+                                    int semiring, int vtype,
+                                    const void* tile_part, const void* cmap,
+                                    const void* run_start,
+                                    const void* run_end, const void* xt,
+                                    void* out, int n_blocks, int S,
+                                    int n_ops, int K, int CT, int F,
+                                    void* stream) {
+  if (S % kLanes != 0 || n_blocks < 1 || n_ops < 1 || F < 1 || F > kMaxF ||
+      vtype == kQ824) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Params p = make_params(vals, idxT, nullptr, tile_part, cmap,
                                run_start, run_end, xt, out, n_blocks, S,
                                n_ops, K, CT, F);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return result(F == 1 ? launch<1, false>(p, semiring, idx16, steal,
+  return result(F == 1 ? launch<1, false>(p, semiring, vtype, idx16, steal,
                                           block_major, st)
-                       : launch<kMaxF, false>(p, semiring, idx16, steal,
-                                              block_major, st));
+                       : launch<kMaxF, false>(p, semiring, vtype, idx16,
+                                              steal, block_major, st));
 }

@@ -84,6 +84,27 @@ def bank_shift(b: int):
     return (b * 61 + 17) % 127 + 1
 
 
+def f32_to_bf16_bits(v) -> np.ndarray:
+    """float32 -> bfloat16 bit patterns (uint16), rounded to nearest even
+    from the float32 bits: ties go to the even mantissa, values past the
+    largest bf16 round to inf, subnormals round like any other value, and a
+    NaN becomes the quiet NaN of its sign (0x7FC0 | sign), as ``ml_dtypes``
+    converts.  The port carries bf16 streams as these bits, so it needs no
+    bf16 dtype in numpy; other float dtypes are rounded to float32 first."""
+    bits = np.ascontiguousarray(v, np.float32).view(np.uint32)
+    rounded = (bits + np.uint32(0x7FFF) + ((bits >> 16) & np.uint32(1))) >> 16
+    nan = (bits & np.uint32(0x7FFFFFFF)) > np.uint32(0x7F800000)
+    out = np.where(nan, (bits >> 16) & np.uint32(0x8000) | np.uint32(0x7FC0),
+                   rounded)
+    return out.astype(np.uint16)
+
+
+def bf16_bits_to_f32(bits) -> np.ndarray:
+    """bfloat16 bit patterns (uint16) -> float32, exactly."""
+    return (np.asarray(bits, np.uint16).astype(np.uint32) << 16).view(
+        np.float32)
+
+
 @dataclasses.dataclass
 class Wavepack:
     """A packed matrix: streams + schedule metadata (CPSRMatrix analog,
@@ -98,7 +119,8 @@ class Wavepack:
                                #  several renamed rows may map to one original
                                #  (hub splitting) and must be summed; entries
                                #  == num_rows are padding rows
-    vals: np.ndarray           # (T, S, 128) float32 / uint32(fixed)
+    vals: np.ndarray           # (T, S, 128) float32 / uint32 (fixed) /
+                               #  uint16 bf16 bit patterns (bf16)
     idxT: np.ndarray           # (T, S, 128) int32, transposed-layout fields
     tile_part: np.ndarray      # (T,) int32  column partition of each tile
     tile_block: np.ndarray     # (T,) int32  row block of each tile
@@ -393,10 +415,14 @@ def pack(m: CSRMatrix, config: SpmvConfig | None = None,
     if cfg.dtype == "fixed":
         val_dtype = m.data.dtype
     elif cfg.dtype == "bf16":
-        import ml_dtypes
-        val_dtype = np.dtype(ml_dtypes.bfloat16)
+        val_dtype = np.dtype(np.uint16)        # bf16 bit patterns
     else:
         val_dtype = np.dtype(np.float32)
+
+    def stream_values(data):
+        return (f32_to_bf16_bits(data) if cfg.dtype == "bf16"
+                else np.ascontiguousarray(data, val_dtype))
+
     G = cfg.groups
     class_map = None
 
@@ -417,7 +443,7 @@ def pack(m: CSRMatrix, config: SpmvConfig | None = None,
         last = np.ones(1, np.int32)
         opt_waves = 0
     elif native.available() and (res := native.pack_full(
-            m.indptr, m.indices, np.ascontiguousarray(m.data, val_dtype),
+            m.indptr, m.indices, stream_values(m.data),
             rank, col_rank, cfg, n_blocks, n_parts,
             min_tile=int(_stop_frac * S * LANES),
             bm_win=bm_win, bm_adv=bm_adv)) is not None:
@@ -572,7 +598,7 @@ def pack(m: CSRMatrix, config: SpmvConfig | None = None,
         pad_val = (np.float32(np.inf) if cfg.semiring == "min_plus"
                    else val_dtype.type(0) if hasattr(val_dtype, "type")
                    else np.float32(0))
-        vals_sorted = np.ascontiguousarray(m.data[order], val_dtype)
+        vals_sorted = stream_values(m.data[order])
         if cfg.block_major:
             bfield = bsel
             if cfg.two_choice:
@@ -682,7 +708,7 @@ def slot_coords(wp: Wavepack):
         b = (packed >> 7) & 0xF
         v = wp.vals[t]
         if cfg.dtype == "bf16":
-            v = v.astype(np.float32)
+            v = bf16_bits_to_f32(v)
         if cfg.steal_mantissa:
             vbits = v.view(np.uint32)
             src = np.broadcast_to((vbits & 0x7F).astype(np.int64),
@@ -784,11 +810,7 @@ def load_wavepack(path) -> Wavepack:
         opt_waves = dims[5] if len(dims) > 5 else 0
         co = f["col_order"]
         cm = f["class_map"]
-        vals = f["vals"]
-        if cfg.dtype == "bf16":
-            import ml_dtypes
-            vals = vals.view(ml_dtypes.bfloat16)
-        return Wavepack(cfg, nr, nc, nb, npart, f["perm"], vals,
+        return Wavepack(cfg, nr, nc, nb, npart, f["perm"], f["vals"],
                         f["idxT"], f["tile_part"], f["tile_block"],
                         f["tile_first"], f["tile_last"], nnz,
                         col_order=co if co.size else None,

@@ -6,7 +6,8 @@ either runs in the port unchanged:
   * :func:`wavepack_from_arrays` builds the port's :class:`Wavepack` from a
     reference pack's fields (numpy arrays and ints; the config may be any
     object with the :class:`SpmvConfig` fields, such as
-    ``hisparse_tpu.SpmvConfig``);
+    ``hisparse_tpu.SpmvConfig``); bf16 values become their uint16 bit
+    patterns;
   * ``formats.wavepack.load_wavepack`` (also ``hisparse_tpu_torch.
     load_wavepack``) reads an ``.npz`` written by
     ``hisparse_tpu.save_wavepack``: the file layout is the same.
@@ -44,6 +45,10 @@ def wavepack_from_arrays(config, **fields) -> Wavepack:
         raise TypeError(f"unknown Wavepack fields: {sorted(unknown)}")
     arrays = {k: (np.asarray(v) if isinstance(v, np.ndarray) else v)
               for k, v in fields.items()}
+    if cfg.dtype == "bf16" and "vals" in arrays:
+        # the reference holds bf16 values in a 2-byte numpy dtype of its
+        # own; the port carries their bit patterns
+        arrays["vals"] = arrays["vals"].view(np.uint16)
     return Wavepack(config=cfg, **arrays)
 
 

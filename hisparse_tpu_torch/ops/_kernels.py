@@ -13,7 +13,8 @@ plain versions run.
 Each kernel has its own launch counter, raised by one per launch made
 through its ``launch_*`` function, so a run can show that its main path
 went through the kernel: ``launches`` (the wavepack SpMV),
-``gradstream_launches``, ``spmm_launches`` and ``masked_launches``.
+``gradstream_launches``, ``spmm_launches``, ``masked_launches`` and
+``bcsr_launches``.
 """
 from __future__ import annotations
 
@@ -32,8 +33,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
 # one shared library per csrc/<name>.cu
-LIBRARIES = ("wavepack_spmv", "wavepack_gradstream")
-# --split-compile=0 optimises the kernels' template instantiations (42 in
+LIBRARIES = ("wavepack_spmv", "wavepack_gradstream", "bcsr")
+# --split-compile=0 optimises the kernels' template instantiations (50 in
 # wavepack_spmv.cu) on every core
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--split-compile=0"]
@@ -42,22 +43,26 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # each kernel's library, C entry point and argument types; SpMV, SpMM and
 # the masked SpMV are one kernel body of wavepack_spmv.cu
 _ENTRY = {
-    "wavepack_spmv": ("wavepack_spmv", "wavepack_spmv_f32",
-                      [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+    "wavepack_spmv": ("wavepack_spmv", "wavepack_spmv_launch",
+                      [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _P]),
     "wavepack_gradstream": ("wavepack_gradstream", "wavepack_gradstream_f32",
                             [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                              _P, _I, _I, _I, _I, _I, _P]),
-    "wavepack_spmm": ("wavepack_spmv", "wavepack_spmm_f32",
-                      [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+    "wavepack_spmm": ("wavepack_spmv", "wavepack_spmm_launch",
+                      [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _P]),
-    "wavepack_spmv_masked": ("wavepack_spmv", "wavepack_spmv_masked_f32",
-                             [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                              _P, _P, _I, _I, _I, _I, _I, _P]),
+    "wavepack_spmv_masked": ("wavepack_spmv", "wavepack_spmv_masked_launch",
+                             [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                              _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "bcsr": ("bcsr", "bcsr_spmm_launch",
+             [_P, _I, _P, _P, _P, _P, _I, _I, _P]),
 }
 KERNELS = tuple(_ENTRY)
-# the kernels' semiring argument (csrc/wavepack_spmv.cu)
+# the wavepack kernels' semiring and value-type arguments
+# (csrc/wavepack_spmv.cu)
 SEMIRINGS = {"plus_times": 0, "min_plus": 1, "max_times": 2}
+VTYPES = {"fp32": 0, "bf16": 1, "fixed": 2}
 
 _lock = threading.Lock()
 _fns = None
@@ -65,6 +70,7 @@ launches = 0
 gradstream_launches = 0
 spmm_launches = 0
 masked_launches = 0
+bcsr_launches = 0
 
 
 def _nvcc() -> str:
@@ -181,15 +187,15 @@ def _ptr(t) -> int | None:
 
 
 def launch_wavepack_spmv(vals, idxT, tile_part, cmap, run_start, run_end,
-                         xt, out, *, semiring: str, steal: bool,
+                         xt, out, *, semiring: str, dtype: str, steal: bool,
                          block_major: bool, n_ops: int, K: int) -> None:
-    """Launch the SpMV kernel on the current stream.  The caller has
-    checked device, dtype, shape and contiguity
-    (ops/spmv.py:wavepack_spmv)."""
+    """Launch the SpMV kernel on the current stream; ``dtype`` is the
+    pack's value type.  The caller has checked device, dtype, shape and
+    contiguity (ops/spmv.py:wavepack_spmv)."""
     global launches
     rc = load()["wavepack_spmv"](
         vals.data_ptr(), idxT.data_ptr(), int(idxT.dtype == torch.int16),
-        int(steal), int(block_major), SEMIRINGS[semiring],
+        int(steal), int(block_major), SEMIRINGS[semiring], VTYPES[dtype],
         tile_part.data_ptr(), _ptr(cmap), run_start.data_ptr(),
         run_end.data_ptr(), xt.data_ptr(), out.data_ptr(),
         run_start.shape[0], vals.shape[1], n_ops, K, xt.shape[1],
@@ -200,7 +206,7 @@ def launch_wavepack_spmv(vals, idxT, tile_part, cmap, run_start, run_end,
 
 def launch_wavepack_spmv_masked(vals, idxT, tile_ids, tile_part, cmap,
                                 run_start, run_end, xt, out, *,
-                                semiring: str, steal: bool,
+                                semiring: str, dtype: str, steal: bool,
                                 block_major: bool, n_ops: int,
                                 K: int) -> None:
     """Launch the masked SpMV kernel on the current stream (checked by
@@ -208,7 +214,7 @@ def launch_wavepack_spmv_masked(vals, idxT, tile_ids, tile_part, cmap,
     global masked_launches
     rc = load()["wavepack_spmv_masked"](
         vals.data_ptr(), idxT.data_ptr(), int(idxT.dtype == torch.int16),
-        int(steal), int(block_major), SEMIRINGS[semiring],
+        int(steal), int(block_major), SEMIRINGS[semiring], VTYPES[dtype],
         tile_ids.data_ptr(), tile_part.data_ptr(), _ptr(cmap),
         run_start.data_ptr(), run_end.data_ptr(), xt.data_ptr(),
         out.data_ptr(), run_start.shape[0], vals.shape[1], n_ops, K,
@@ -235,17 +241,30 @@ def launch_wavepack_gradstream(vals, idxT, mask, tile_part, tile_block,
 
 
 def launch_wavepack_spmm(vals, idxT, tile_part, cmap, run_start, run_end,
-                         xt, out, *, semiring: str, steal: bool,
+                         xt, out, *, semiring: str, dtype: str, steal: bool,
                          block_major: bool, n_ops: int, K: int) -> None:
     """Launch the SpMM kernel on the current stream (checked by
     ops/spmv.py:wavepack_spmm); xt is (n_parts, F, CT, 128, 128)."""
     global spmm_launches
     rc = load()["wavepack_spmm"](
         vals.data_ptr(), idxT.data_ptr(), int(idxT.dtype == torch.int16),
-        int(steal), int(block_major), SEMIRINGS[semiring],
+        int(steal), int(block_major), SEMIRINGS[semiring], VTYPES[dtype],
         tile_part.data_ptr(), _ptr(cmap), run_start.data_ptr(),
         run_end.data_ptr(), xt.data_ptr(), out.data_ptr(),
         run_start.shape[0], vals.shape[1], n_ops, K, xt.shape[2],
         xt.shape[1], _stream(vals))
     _check("wavepack_spmm", rc)
     spmm_launches += 1
+
+
+def launch_bcsr(blocks, brow_ptr, bcol, x, out) -> None:
+    """Launch the BCSR kernel on the current stream (checked by
+    ops/bcsr.py:bcsr_spmm): blocks (nb, 128, 128) bf16 or fp32, x
+    (nbc*128, kp) of the same dtype, out (nbr*128, kp) fp32."""
+    global bcsr_launches
+    rc = load()["bcsr"](
+        blocks.data_ptr(), int(blocks.dtype == torch.bfloat16),
+        brow_ptr.data_ptr(), bcol.data_ptr(), x.data_ptr(), out.data_ptr(),
+        brow_ptr.shape[0] - 1, x.shape[1], _stream(blocks))
+    _check("bcsr", rc)
+    bcsr_launches += 1

@@ -39,9 +39,17 @@ stream ``wavepack_gradstream`` / ``gradstream_tiles_plain`` gives dL/dvals
 in the pack's stream layout (plus_times only).  The kernels and their
 plain versions share one routing: ``csrc/route.cuh`` and ``route_plain``.
 
-fp32 packs run: select-chain and block-major, two_choice, steal_mantissa,
-idx16, any number of column partitions, the three semirings.  bf16 values
-and fixed-point Q8.24 raise ``NotImplementedError``.
+Every pack ``config.py`` allows runs: select-chain and block-major,
+two_choice, steal_mantissa, idx16, any number of column partitions, the
+three semirings in fp32, and plus_times over bf16 values or saturating
+unsigned Q8.24 (the fourth algebra, ``"fixed"``).  A bf16 stream is held
+on the device as ``torch.bfloat16`` (2 B a value) and widened to fp32 per
+term; x and the accumulator stay fp32.  A Q8.24 stream, its x and its
+accumulator are uint32 words carried in int32 tensors (torch has few
+uint32 ops); the plain versions widen them to int64.  Q8.24 packs run SpMV
+only: ``matmul``, ``masked`` and ``unpack_device`` raise ``ValueError``,
+as the JAX package's do, and ``forward`` recombines hub-split rows on the
+host (``Wavepack.unpack_y``).  The gradient stream is fp32 plus_times.
 """
 from __future__ import annotations
 
@@ -58,28 +66,78 @@ SPMM_MAX_F = 16              # features per SpMM kernel launch
 # routing offsets stay near a GB
 PLAIN_CHUNK_SLOTS = 1 << 24
 IDENTITY = {"plus_times": 0.0, "min_plus": float("inf"),
-            "max_times": float("-inf")}
+            "max_times": float("-inf"), "fixed": 0}
+FIX_MAX = 0xFFFFFFFF          # Q8.24 saturates at the all-ones word
+# the device dtype of each stream value type
+VALUE_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16,
+                "fixed": torch.int32}
 
 
-def check_supported(cfg: SpmvConfig) -> None:
-    """Raise ``NotImplementedError`` for a pack this slice cannot run."""
-    if cfg.dtype != "fp32":
-        raise NotImplementedError(
-            f"dtype {cfg.dtype!r}: only fp32 packs are ported so far")
+def algebra(cfg: SpmvConfig) -> str:
+    """What a pack's kernels fold: its semiring, or ``"fixed"`` (the
+    saturating Q8.24 multiply-add) for a Q8.24 pack."""
+    return "fixed" if cfg.dtype == "fixed" else cfg.semiring
+
+
+def acc_dtype(cfg: SpmvConfig) -> torch.dtype:
+    """The dtype of x, XT and the accumulator: int32 (Q8.24 words) for a
+    Q8.24 pack, else float32."""
+    return torch.int32 if cfg.dtype == "fixed" else torch.float32
+
+
+def check_float(cfg: SpmvConfig, what: str) -> None:
+    """Raise ``ValueError`` for a Q8.24 pack, which ``what`` does not
+    take (the JAX package refuses it too)."""
+    if cfg.dtype == "fixed":
+        raise ValueError(f"{what} supports float packs only")
 
 
 def check_plus_times(cfg: SpmvConfig, what: str) -> None:
     """Raise ``NotImplementedError`` unless the pack is fp32 plus_times,
     the only algebra ``what`` is defined for."""
-    check_supported(cfg)
-    if cfg.semiring != "plus_times":
+    if cfg.dtype != "fp32" or cfg.semiring != "plus_times":
         raise NotImplementedError(
-            f"semiring {cfg.semiring!r}: {what} is plus_times only")
+            f"{cfg.dtype} {cfg.semiring}: {what} is fp32 plus_times only")
+
+
+def fixed_bits(x) -> torch.Tensor:
+    """Q8.24 x as its uint32 words in an int32 tensor: a numpy uint32 array
+    or a uint32 or int32 tensor is taken as the words, any other numpy
+    input is quantized first (``ops/golden.float_to_fixed``, as the JAX
+    operator's ``__call__`` does)."""
+    if isinstance(x, torch.Tensor):
+        if x.dtype in (torch.int32, torch.uint32):
+            return x.view(torch.int32)
+        x = x.cpu().numpy()
+    a = np.asarray(x)
+    if a.dtype != np.uint32:
+        from .golden import float_to_fixed
+        a = float_to_fixed(a)
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
+
+
+def _u32(t: torch.Tensor) -> torch.Tensor:
+    """int32-carried uint32 words -> their values in int64."""
+    return t.to(torch.int64) & FIX_MAX
+
+
+def _to_words(t: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> the same words in int32."""
+    return torch.where(t > 0x7FFFFFFF, t - (1 << 32), t).to(torch.int32)
 
 
 def semiring_term(v, x, semiring: str):
     """The term ``v (x) x`` of each slot, rounded once: ``v + x`` for
-    min_plus, ``v * x`` otherwise."""
+    min_plus, ``v * x`` otherwise.  For ``"fixed"`` (int64 operands in
+    [0, 2^32)) the Q8.24 product with round-half-up, saturated at
+    ``FIX_MAX``: ``v*x + 2^23`` reaches 2^64, so ``v`` is split into 16-bit
+    limbs, ``hi = (v >> 16)*x`` and ``lo = (v & 0xFFFF)*x + 2^23``, and
+    ``(v*x + 2^23) >> 24 = (hi + (lo >> 16)) >> 8``, every step inside
+    int64 (``_fixed_madd``'s limbs, two of them)."""
+    if semiring == "fixed":
+        hi = (v >> 16) * x
+        lo = (v & 0xFFFF) * x + (1 << 23)
+        return torch.clamp_max((hi + (lo >> 16)) >> 8, FIX_MAX)
     return v + x if semiring == "min_plus" else v * x
 
 
@@ -87,22 +145,32 @@ def semiring_add(acc, t, semiring: str):
     """``acc (+) t`` elementwise, as the kernels fold a term: ``acc + t``,
     ``min(acc, t)`` or ``max(acc, t)``.  min and max take the term where it
     is smaller (larger) or NaN, so a NaN propagates and a tie keeps
-    ``acc``."""
+    ``acc``.  ``"fixed"`` adds with saturation at ``FIX_MAX`` (int64
+    operands)."""
     if semiring == "min_plus":
         return torch.where((t < acc) | torch.isnan(t), t, acc)
     if semiring == "max_times":
         return torch.where((t > acc) | torch.isnan(t), t, acc)
+    if semiring == "fixed":
+        return torch.clamp_max(acc + t, FIX_MAX)
     return acc + t
 
 
 def build_xt(x: torch.Tensor, cfg: SpmvConfig, n_parts: int) -> torch.Tensor:
     """Vector-loader analog (``hisparse_tpu/ops/spmv.py:_build_xt``):
     XT[p, b, l, h] = x[p*VB + (b*128 + h)*128 + l], plus the two-choice
-    second copy of every block.  Returns a contiguous float32 tensor of
-    shape (n_parts, CT, 128, 128) on x's device."""
-    check_supported(cfg)
+    second copy of every block.  Returns a contiguous tensor of shape
+    (n_parts, CT, 128, 128) on x's device: float32, or for a Q8.24 pack the
+    raw words of x (int32 or uint32 x, kept as int32)."""
     B = cfg.bank_blocks
-    x = x.to(torch.float32)
+    if cfg.dtype == "fixed":
+        if x.dtype not in (torch.int32, torch.uint32):
+            raise ValueError("a Q8.24 pack takes x as its uint32 words "
+                             "(fixed_bits)")
+        x = x.view(torch.int32)
+    else:
+        # bf16 streams compress the matrix values only; x stays fp32
+        x = x.to(torch.float32)
     x_padded = torch.nn.functional.pad(
         x, (0, n_parts * cfg.vb_cols - x.shape[0]))
     xt = x_padded.reshape(n_parts, B, 128, LANES).transpose(2, 3)
@@ -161,11 +229,11 @@ def route_plain(vals, idxT, tile_part, cmap, cfg: SpmvConfig, CT: int):
     the stream.
 
     Returns ``(v, off)``: ``v`` the (T, S, 128) values with the stolen src
-    bits of steal_mantissa packs cleared, and ``off`` the int64 flat
-    offset of each slot's routed x in an XT of shape (n_parts, CT, 128,
-    128): XT[part[t], blk, src, h], with src the slot's crossbar lane and
-    (blk, h) decoded from the idx word of gather slot (s, src)."""
-    check_supported(cfg)
+    bits of steal_mantissa packs cleared (bf16 widened to float32, Q8.24
+    words widened to int64), and ``off`` the int64 flat offset of each
+    slot's routed x in an XT of shape (n_parts, CT, 128, 128): XT[part[t],
+    blk, src, h], with src the slot's crossbar lane and (blk, h) decoded
+    from the idx word of gather slot (s, src)."""
     T, S, _ = vals.shape
     G = S // 128
     dev = vals.device
@@ -179,7 +247,7 @@ def route_plain(vals, idxT, tile_part, cmap, cfg: SpmvConfig, CT: int):
         v = (vbits & -128).view(torch.float32)
     else:
         src = ((packed >> 11) & 0x7F).long()
-        v = vals
+        v = _u32(vals) if cfg.dtype == "fixed" else vals.to(torch.float32)
     w = torch.gather(packed, 2, src)          # word of gather slot (s, src)
     n_ops = _n_ops(cfg)
     if cfg.steal_mantissa:
@@ -214,10 +282,12 @@ def _accumulate_runs(vals, idxT, tile_part, cmap, run_start, run_end, xts,
     routed once for all features, the accumulator carried from chunk to
     chunk, so each slot still folds its terms in run order."""
     _, S, _ = vals.shape
+    sr = algebra(cfg)
     n_blocks = run_start.shape[0]
     n_runs = vals.shape[0] if tile_ids is None else tile_ids.shape[0]
-    acc = torch.full((len(xts), n_blocks, S, LANES), IDENTITY[cfg.semiring],
-                     dtype=torch.float32, device=vals.device)
+    acc = torch.full((len(xts), n_blocks, S, LANES), IDENTITY[sr],
+                     dtype=torch.int64 if sr == "fixed" else torch.float32,
+                     device=vals.device)
     starts, ends = run_start.long(), run_end.long()
     step = max(1, PLAIN_CHUNK_SLOTS // (S * LANES))
     for c0 in range(0, n_runs if n_blocks else 0, step):
@@ -233,23 +303,23 @@ def _accumulate_runs(vals, idxT, tile_part, cmap, run_start, run_end, xts,
                              None if cmap is None else cmap[tiles], cfg,
                              xts[0].shape[1])
         for f, xt in enumerate(xts):
-            term = semiring_term(v, xt.reshape(-1)[off], cfg.semiring)
+            x = xt.reshape(-1)[off]
+            term = semiring_term(v, _u32(x) if sr == "fixed" else x, sr)
             for k in range(depth):
                 live = torch.nonzero(lengths > k).squeeze(1)
                 acc[f, live] = semiring_add(acc[f, live],
-                                            term[lo[live] + (k - c0)],
-                                            cfg.semiring)
-    return acc.reshape(len(xts), n_blocks * S, LANES)
+                                            term[lo[live] + (k - c0)], sr)
+    acc = acc.reshape(len(xts), n_blocks * S, LANES)
+    return _to_words(acc) if sr == "fixed" else acc
 
 
 def spmv_tiles_plain(vals, idxT, tile_part, cmap, run_start, run_end, xt,
                      cfg: SpmvConfig) -> torch.Tensor:
-    """Plain PyTorch version of the SpMV kernel (``_tile_body`` for fp32
-    over the stream).
+    """Plain PyTorch version of the SpMV kernel (``_tile_body`` over the
+    stream).
 
     Returns the (n_blocks*S, 128) accumulator.  Each block folds its tiles
     in stream order, every operation rounded once, as the kernel does."""
-    check_supported(cfg)
     return _accumulate_runs(vals, idxT, tile_part, cmap, run_start, run_end,
                             [xt], cfg)[0]
 
@@ -260,7 +330,7 @@ def spmv_masked_tiles_plain(vals, idxT, tile_ids, tile_part, cmap,
     """Plain PyTorch version of the masked SpMV kernel: the SpMV over the
     tiles ``tile_ids`` (stream order) alone, ``run_start`` / ``run_end``
     each block's run into ``tile_ids``."""
-    check_supported(cfg)
+    check_float(cfg, "the masked path")
     return _accumulate_runs(vals, idxT, tile_part, cmap, run_start, run_end,
                             [xt], cfg, tile_ids=tile_ids)[0]
 
@@ -284,19 +354,21 @@ def spmm_tiles_plain(vals, idxT, tile_part, cmap, run_start, run_end, xt,
     for fp32): ``xt`` is (n_parts, F, CT, 128, 128); returns the (F,
     n_blocks*S, 128) accumulators.  The routing is decoded once and the
     features run one after another, each folded in stream order."""
-    check_supported(cfg)
+    check_float(cfg, "matmul")
     return _accumulate_runs(vals, idxT, tile_part, cmap, run_start, run_end,
                             [xt[:, f] for f in range(xt.shape[1])], cfg)
 
 
-def _check_operands(name, vals, checks) -> None:
-    """Raise ``ValueError`` unless vals is (T, S, 128) with S % 128 == 0
-    and every (tensor, dtype, shape) of ``checks`` is on vals's device,
-    of that dtype and shape, and contiguous."""
+def _check_operands(name, vals, checks, cfg: SpmvConfig) -> None:
+    """Raise ``ValueError`` unless vals is (T, S, 128) with S % 128 == 0,
+    of the pack's value dtype, and every (tensor, dtype, shape) of
+    ``checks`` is on vals's device, of that dtype and shape, and
+    contiguous."""
     if vals.dim() != 3 or vals.shape[2] != LANES or vals.shape[1] % 128:
         raise ValueError(f"{name}: vals must be (T, S, {LANES}) with "
                          "S % 128 == 0")
-    for t, dtype, shape in [(vals, torch.float32, vals.shape)] + checks:
+    for t, dtype, shape in [(vals, VALUE_DTYPES[cfg.dtype],
+                             vals.shape)] + checks:
         if t.device != vals.device:
             raise ValueError(f"{name}: operand on {t.device}, vals on "
                              f"{vals.device}")
@@ -333,6 +405,12 @@ def _pack_kw(cfg: SpmvConfig) -> dict:
                 n_ops=_n_ops(cfg), K=cfg.classes_per_group)
 
 
+def _xt_check(xt, cfg: SpmvConfig):
+    """The SpMV XT operand's check: (n_parts, CT, 128, 128) of the pack's
+    x dtype."""
+    return (xt, acc_dtype(cfg), (xt.shape[0], cfg.total_blocks, 128, 128))
+
+
 def _run_checks(run_start, run_end):
     return [(run_start, torch.int32, run_start.shape),
             (run_end, torch.int32, run_start.shape)]
@@ -341,7 +419,7 @@ def _run_checks(run_start, run_end):
 def wavepack_spmv(vals, idxT, tile_part, cmap, run_start, run_end, xt,
                   cfg: SpmvConfig) -> torch.Tensor:
     """The tile stream -> the (n_blocks*S, 128) accumulator, in the pack's
-    semiring.
+    algebra (float32, or Q8.24 words in int32 for a Q8.24 pack).
 
     On CUDA tensors this launches ``csrc/wavepack_spmv.cu``; on CPU
     tensors it runs :func:`spmv_tiles_plain`.  Blocks without tiles come
@@ -349,7 +427,6 @@ def wavepack_spmv(vals, idxT, tile_part, cmap, run_start, run_end, xt,
     operands: runs from :func:`block_runs`, partition and class ids in
     range (``SpmvOperator`` checks both on the host when it is built);
     this wrapper checks device, dtype, shape and contiguity."""
-    check_supported(cfg)
     if _device_of("wavepack_spmv", vals) == "cpu":
         return spmv_tiles_plain(vals, idxT, tile_part, cmap, run_start,
                                 run_end, xt, cfg)
@@ -357,12 +434,13 @@ def wavepack_spmv(vals, idxT, tile_part, cmap, run_start, run_end, xt,
         raise ValueError("wavepack_spmv: one run per block")
     _check_operands("wavepack_spmv", vals, _stream_checks(
         vals, idxT, tile_part, cmap, cfg) + _run_checks(run_start, run_end)
-        + [(xt, torch.float32, (xt.shape[0], cfg.total_blocks, 128, 128))])
+        + [_xt_check(xt, cfg)], cfg)
     out = torch.empty(run_start.shape[0] * vals.shape[1], LANES,
-                      dtype=torch.float32, device=vals.device)
+                      dtype=acc_dtype(cfg), device=vals.device)
     _kernels.launch_wavepack_spmv(
         vals, idxT, tile_part, cmap if cfg.block_major else None,
-        run_start, run_end, xt, out, semiring=cfg.semiring, **_pack_kw(cfg))
+        run_start, run_end, xt, out, semiring=cfg.semiring, dtype=cfg.dtype,
+        **_pack_kw(cfg))
     return out
 
 
@@ -378,8 +456,9 @@ def wavepack_spmv_masked(vals, idxT, tile_ids, tile_part, cmap, run_start,
     On CUDA tensors this launches ``csrc/wavepack_spmv.cu``'s masked
     kernel; on CPU tensors it runs :func:`spmv_masked_tiles_plain`.  The
     kernel trusts tile ids and runs to be in range; this wrapper checks
-    device, dtype, shape and contiguity."""
-    check_supported(cfg)
+    device, dtype, shape and contiguity.  Q8.24 packs raise
+    ``ValueError``."""
+    check_float(cfg, "the masked path")
     if _device_of("wavepack_spmv_masked", vals) == "cpu":
         return spmv_masked_tiles_plain(vals, idxT, tile_ids, tile_part,
                                        cmap, run_start, run_end, xt, cfg)
@@ -388,13 +467,14 @@ def wavepack_spmv_masked(vals, idxT, tile_ids, tile_part, cmap, run_start,
                          "1-D tile_ids")
     _check_operands("wavepack_spmv_masked", vals, _stream_checks(
         vals, idxT, tile_part, cmap, cfg) + _run_checks(run_start, run_end)
-        + [(tile_ids, torch.int32, tile_ids.shape),
-           (xt, torch.float32, (xt.shape[0], cfg.total_blocks, 128, 128))])
+        + [(tile_ids, torch.int32, tile_ids.shape), _xt_check(xt, cfg)],
+        cfg)
     out = torch.empty(run_start.shape[0] * vals.shape[1], LANES,
                       dtype=torch.float32, device=vals.device)
     _kernels.launch_wavepack_spmv_masked(
         vals, idxT, tile_ids, tile_part, cmap if cfg.block_major else None,
-        run_start, run_end, xt, out, semiring=cfg.semiring, **_pack_kw(cfg))
+        run_start, run_end, xt, out, semiring=cfg.semiring, dtype=cfg.dtype,
+        **_pack_kw(cfg))
     return out
 
 
@@ -422,7 +502,7 @@ def wavepack_gradstream(vals, idxT, mask, tile_part, tile_block, cmap,
         (mask, torch.float32, (T, S, LANES)),
         (tile_block, torch.int32, (T,)),
         (g_acc, torch.float32, (g_acc.shape[0], LANES)),
-        (xt, torch.float32, (xt.shape[0], cfg.total_blocks, 128, 128))])
+        _xt_check(xt, cfg)], cfg)
     out = torch.empty_like(vals)
     if T:
         _kernels.launch_wavepack_gradstream(
@@ -441,8 +521,8 @@ def wavepack_spmm(vals, idxT, tile_part, cmap, run_start, run_end, xt,
     On CUDA tensors this launches ``csrc/wavepack_spmv.cu`` (the SpMV
     kernel's body with F accumulators); on CPU tensors it runs
     :func:`spmm_tiles_plain`.  The operand contract is
-    :func:`wavepack_spmv`'s."""
-    check_supported(cfg)
+    :func:`wavepack_spmv`'s; Q8.24 packs raise ``ValueError``."""
+    check_float(cfg, "matmul")
     if _device_of("wavepack_spmm", vals) == "cpu":
         return spmm_tiles_plain(vals, idxT, tile_part, cmap, run_start,
                                 run_end, xt, cfg)
@@ -454,12 +534,14 @@ def wavepack_spmm(vals, idxT, tile_part, cmap, run_start, run_end, xt,
     n_parts, F = xt.shape[:2]
     _check_operands("wavepack_spmm", vals, _stream_checks(
         vals, idxT, tile_part, cmap, cfg) + _run_checks(run_start, run_end)
-        + [(xt, torch.float32, (n_parts, F, cfg.total_blocks, 128, 128))])
+        + [(xt, torch.float32, (n_parts, F, cfg.total_blocks, 128, 128))],
+        cfg)
     out = torch.empty(F, run_start.shape[0] * vals.shape[1], LANES,
                       dtype=torch.float32, device=vals.device)
     _kernels.launch_wavepack_spmm(
         vals, idxT, tile_part, cmap if cfg.block_major else None,
-        run_start, run_end, xt, out, semiring=cfg.semiring, **_pack_kw(cfg))
+        run_start, run_end, xt, out, semiring=cfg.semiring, dtype=cfg.dtype,
+        **_pack_kw(cfg))
     return out
 
 
@@ -467,10 +549,13 @@ def stripe_fold(acc: torch.Tensor, cfg: SpmvConfig,
                 n_blocks: int) -> torch.Tensor:
     """(n_blocks*S, 128) accumulator -> (n_blocks, R, 128) rows: the S/R
     sublanes of stripe sigma fold into row sigma (PE output stage), by
-    sum, min or max as the semiring adds."""
-    check_supported(cfg)
+    sum, min or max as the semiring adds; a Q8.24 pack by the saturating
+    sum ``fixed_sat_sum``, which for nonnegative terms is min(sum,
+    FIX_MAX) in any order."""
     S, R = cfg.sublanes, cfg.stripes
     rows = acc.reshape(n_blocks, S // R, R, LANES)
+    if cfg.dtype == "fixed":
+        return _to_words(torch.clamp_max(_u32(rows).sum(dim=1), FIX_MAX))
     if cfg.semiring == "min_plus":
         return rows.amin(dim=1)
     if cfg.semiring == "max_times":
@@ -489,12 +574,15 @@ class SpmvOperator(torch.nn.Module):
     a pack ``col_order``, x is given in natural column order and permuted
     on the device (``permute_x=False`` when the caller already feeds
     packed-order x).  ``matmul(X)`` is the multi-vector form, ``masked(x,
-    active)`` the sparse-frontier form."""
+    active)`` the sparse-frontier form.
+
+    A Q8.24 pack takes x as Q8.24 words (a uint32 array, or floats that
+    are quantized first) and its y comes back from the host recombine as a
+    uint32 CPU tensor (renamed y: the device words, viewed as uint32)."""
 
     def __init__(self, wp: Wavepack, device="cuda", permute_x: bool = True):
         super().__init__()
         cfg = wp.config
-        check_supported(cfg)
         self.wp = wp
         self.cfg = cfg
         self.device = torch.device(device)
@@ -517,7 +605,16 @@ class SpmvOperator(torch.nn.Module):
             a = np.ascontiguousarray(a, dtype)
             return torch.from_numpy(a).to(self.device)
 
-        self.register_buffer("vals", buf(wp.vals, np.float32))
+        # bf16 values arrive as their uint16 bit patterns and stay 2 B on
+        # the device; Q8.24 words ride in int32
+        if cfg.dtype == "bf16":
+            vals = buf(wp.vals, np.uint16).view(torch.bfloat16)
+        elif cfg.dtype == "fixed":
+            vals = buf(np.ascontiguousarray(wp.vals, np.uint32).view(
+                np.int32))
+        else:
+            vals = buf(wp.vals, np.float32)
+        self.register_buffer("vals", vals)
         self.register_buffer(
             "idxT", buf(wp.idxT, np.int16 if cfg.idx16 else np.int32))
         self.register_buffer("tile_part", buf(part, np.int32))
@@ -557,7 +654,12 @@ class SpmvOperator(torch.nn.Module):
         over an identity-filled output for min_plus and max_times.  On CUDA
         the partials of one row add in no fixed order.  max_times rows
         with no term come out at 0, not -inf (``max(out, 0)``, the JAX
-        package's clamp).  A (F, renamed) input gives (F, num_rows)."""
+        package's clamp).  A (F, renamed) input gives (F, num_rows).  Q8.24
+        packs raise ``ValueError``: their recombine saturates
+        (``Wavepack.unpack_y`` on the host)."""
+        if self.cfg.dtype == "fixed":
+            raise ValueError("fixed-point recombine saturates; use "
+                             "wp.unpack_y on host")
         n = self.wp.num_rows
         sr = self.cfg.semiring
         out = torch.full(y_renamed.shape[:-1] + (n + 1,), IDENTITY[sr],
@@ -573,6 +675,8 @@ class SpmvOperator(torch.nn.Module):
         return out[..., :n]
 
     def _x(self, x) -> torch.Tensor:
+        if self.cfg.dtype == "fixed":
+            x = fixed_bits(x).to(self.device)
         x = torch.as_tensor(x, device=self.device)
         if x.shape != (self.wp.num_cols,):
             raise ValueError(f"x has shape {tuple(x.shape)}, expected "
@@ -581,9 +685,16 @@ class SpmvOperator(torch.nn.Module):
 
     def forward(self, x, renamed: bool = False, vals=None) -> torch.Tensor:
         """y = A x; ``vals`` (a stream of the pack's shape) replaces the
-        stored values for this call, as the training paths do."""
+        stored values for this call, as the training paths do.  A Q8.24
+        pack ends in the host recombine ``Wavepack.unpack_y``, as the JAX
+        operator's ``_run`` does."""
         acc = wavepack_spmv(*self.stream_args(self._x(x), vals), self.cfg)
         y = self.renamed_y(acc)
+        if self.cfg.dtype == "fixed":
+            if renamed:
+                return y.view(torch.uint32)
+            return torch.from_numpy(self.wp.unpack_y(
+                y.cpu().numpy().view(np.uint32)))
         return y if renamed else self.unpack_device(y)
 
     def active_tiles(self, active) -> np.ndarray:
@@ -623,7 +734,8 @@ class SpmvOperator(torch.nn.Module):
         are in natural column order, mapped through the pack's
         ``col_order`` as :meth:`forward` maps x.  Row blocks that no
         selected tile reaches come out at the semiring's identity in
-        renamed order."""
+        renamed order.  Q8.24 packs raise ``ValueError``."""
+        check_float(self.cfg, "the masked path")
         x = self._x(x)
         if isinstance(active, torch.Tensor):
             active = active.cpu().numpy()
@@ -668,7 +780,8 @@ class SpmvOperator(torch.nn.Module):
         (X: (num_cols, F) features, natural column order; returns
         (num_rows, F), or (F, renamed rows) with ``renamed=True``).  Each
         launch takes up to ``SPMM_MAX_F`` features and streams the matrix
-        once for all of them."""
+        once for all of them.  Q8.24 packs raise ``ValueError``."""
+        check_float(self.cfg, "matmul")
         X = torch.as_tensor(X, device=self.device)
         if X.dim() != 2 or X.shape[0] != self.wp.num_cols or X.shape[1] < 1:
             raise ValueError(f"matmul takes (num_cols, F) features with "

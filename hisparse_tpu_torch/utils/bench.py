@@ -17,6 +17,7 @@ sparse vectors for the masked call.
 """
 from __future__ import annotations
 
+import dataclasses
 import statistics
 from typing import Callable
 
@@ -26,12 +27,15 @@ import torch
 from ..config import SpmvConfig
 from ..formats.csr import powerlaw_csr
 from ..formats.wavepack import pack
+from ..ops.golden import float_to_fixed
 
 # The config families of the JAX package's chip parity sweep
 # (scripts/tpu_check.py:49-86): (name, SpmvConfig fields, columns beyond
 # one partition, the JAX operator variant).  Family i packs
 # powerlaw_csr(2000, vb_cols + extra, 9, alpha=1.2, seed=40 + i) with
-# split_max=16; its x is default_rng(100 + i).random(num_cols).
+# split_max=16; its x is default_rng(100 + i).random(num_cols).  The
+# fixed-point family takes both as Q8.24 words, the values scaled by
+# 1/(4*9) so that no row sum saturates (scripts/tpu_check.py:93-100).
 PARITY_FAMILIES = (
     ("chain-fp32", dict(sublanes=256, bank_blocks=2, stripes=128,
                         two_choice=True), 0, "auto"),
@@ -70,11 +74,13 @@ PARITY_FAMILIES = (
 
 FAMILY_INDEX = {f[0]: i for i, f in enumerate(PARITY_FAMILIES)}
 
-# the plus_times families this port runs (fp32)
-FP32_FAMILIES = tuple(
+# the plus_times families: every value type (fp32, Q8.24, bf16)
+PLUS_TIMES_FAMILIES = tuple(
     f for f in PARITY_FAMILIES
-    if f[1].get("dtype", "fp32") == "fp32"
-    and f[1].get("semiring", "plus_times") == "plus_times")
+    if f[1].get("semiring", "plus_times") == "plus_times")
+# those of them with fp32 values, for the fp32-only gradient stream
+FP32_FAMILIES = tuple(f for f in PLUS_TIMES_FAMILIES
+                      if f[1].get("dtype", "fp32") == "fp32")
 
 # every parity family fits one row block; this one spans two (stripes=32
 # makes a row block 4096 rows)
@@ -105,11 +111,19 @@ def family_inputs(fam):
 
 
 def family_case(fam):
-    """``(matrix, pack, x)`` of a family, made with this package alone."""
+    """``(matrix, pack, x)`` of a family, made with this package alone;
+    for the fixed-point family the matrix values and x are Q8.24 words
+    (uint32)."""
     args, split, xseed = family_inputs(fam)
     m = powerlaw_csr(*args)
+    x = np.random.default_rng(xseed).random(m.num_cols)
+    if fam[1].get("dtype") == "fixed":
+        m = dataclasses.replace(m, data=float_to_fixed(
+            np.abs(m.data) / (4 * 9)))
+        x = float_to_fixed(x)
+    else:
+        x = x.astype(np.float32)
     wp = pack(m, SpmvConfig(**fam[1]), split_max=split)
-    x = np.random.default_rng(xseed).random(m.num_cols).astype(np.float32)
     return m, wp, x
 
 
@@ -215,6 +229,11 @@ def profile_breakdown(fn: Callable[[], object], steps: int = 10,
                   for name, (us, n) in by_name.items()), reverse=True)
     return {"ms": ms, "busy_us": busy,
             "idle_share": max(0.0, 1.0 - busy / (ms * 1e3)), "ops": ops}
+
+
+def geomean(vals) -> float:
+    vals = [v for v in vals if v > 0]
+    return float(np.exp(np.mean(np.log(vals)))) if vals else 0.0
 
 
 def gops(nnz: int, ms: float) -> float:

@@ -15,7 +15,12 @@ one product per slot and is held bit for bit; on streams of arbitrary idx
 words every kernel is held bit for bit.  min_plus and max_times round
 once per term and take an exact min or max, so their kernels are held
 bit for bit everywhere, NaN placement included, and the masked kernel
-bit for bit against its plain version and against the full SpMV.
+bit for bit against its plain version and against the full SpMV.  bf16
+streams widen each value exactly and round each operation once, and
+Q8.24 is integer arithmetic, so both are held bit for bit too.  The BCSR
+kernel sums each output in another order than ``torch.bmm``: fp32 blocks
+within 1e-5 of max|Y|, bf16 blocks on the tensor cores (whose fp32
+accumulation is not IEEE-ordered) within 1e-4.
 """
 import numpy as np
 import pytest
@@ -24,12 +29,14 @@ import torch
 from hisparse_tpu_torch import SpmvOperator
 from hisparse_tpu_torch.ops import _kernels
 from hisparse_tpu_torch.ops.golden import spmv_f64
+from hisparse_tpu_torch.ops.golden import spmv_fixed_vec
 from hisparse_tpu_torch.ops.spmv import (
-    SPMM_MAX_F, build_xt, build_xt_multi,
+    SPMM_MAX_F, build_xt, build_xt_multi, fixed_bits,
     gradstream_tiles_plain, spmm_tiles_plain, spmv_masked_tiles_plain,
     spmv_tiles_plain, wavepack_gradstream, wavepack_spmm, wavepack_spmv,
     wavepack_spmv_masked)
 from hisparse_tpu_torch.utils.bench import (FP32_FAMILIES, MULTIBLOCK_FAMILY,
+                                           PLUS_TIMES_FAMILIES,
                                            SEMIRING_FAMILIES, family_case,
                                            semiring_f64, sparse_x)
 
@@ -47,27 +54,43 @@ def _err(a, b):
     return float((a - b).abs().max() / max(float(b.abs().max()), 1.0))
 
 
+def _device_x(op, x, dev):
+    """A family's x on the card in packed column order (Q8.24 words for a
+    fixed-point pack)."""
+    x_dev = (fixed_bits(x) if op.cfg.dtype == "fixed"
+             else torch.from_numpy(x)).to(dev)
+    return x_dev if op.col_order is None else x_dev[op.col_order]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("fam", FP32_FAMILIES + (MULTIBLOCK_FAMILY,),
+@pytest.mark.parametrize("fam", PLUS_TIMES_FAMILIES + (MULTIBLOCK_FAMILY,),
                          ids=lambda f: f[0])
 def test_kernel_matches_plain_on_cuda(fam, cuda_device):
-    """Kernel vs plain version on the same CUDA operands; the launch
-    counter rises by one per kernel call and the operator's y matches the
-    golden."""
+    """Kernel vs plain version on the same CUDA operands (bf16 and Q8.24
+    bit for bit); the launch counter rises by one per kernel call and the
+    operator's y matches the golden: f64 within 1e-4 (8e-3 for bf16
+    values, one bf16 rounding a term), ``spmv_fixed_vec`` exactly."""
     m, wp, x = family_case(fam)
     op = SpmvOperator(wp, device=cuda_device)
-    x_dev = torch.from_numpy(x).to(cuda_device)
-    args = op.stream_args(x_dev if op.col_order is None
-                          else x_dev[op.col_order])
+    args = op.stream_args(_device_x(op, x, cuda_device))
     before = _kernels.launches
     acc = wavepack_spmv(*args, op.cfg)
     torch.cuda.synchronize()
     assert _kernels.launches == before + 1
     plain = spmv_tiles_plain(*args, op.cfg)
-    assert _err(op.renamed_y(acc), op.renamed_y(plain)) <= 1e-6
-    y = op(x_dev)
-    assert y.device.type == "cuda" and y.shape == (m.num_rows,)
-    assert _err(y, torch.from_numpy(spmv_f64(m, x))) <= 1e-4
+    if op.cfg.dtype == "fp32":
+        assert _err(op.renamed_y(acc), op.renamed_y(plain)) <= 1e-6
+    else:
+        _exact(acc, plain)
+    y = op(x)
+    assert y.shape == (m.num_rows,)
+    if op.cfg.dtype == "fixed":
+        np.testing.assert_array_equal(y.numpy(),
+                                      spmv_fixed_vec(m, x, m.data))
+        return
+    assert y.device.type == "cuda"
+    tol = 8e-3 if op.cfg.dtype == "bf16" else 1e-4
+    assert _err(y, torch.from_numpy(spmv_f64(m, x))) <= tol
 
 
 @pytest.mark.cuda
@@ -400,3 +423,99 @@ def test_semiring_kernels_on_arbitrary_words(case, sr, cuda_device):
     margs = (v, idx, dev([1, 3, 5], np.int32), part, cmap,
              dev([0, 1, 1], np.int32), dev([1, 1, 3], np.int32), xt, cfg)
     _exact(wavepack_spmv_masked(*margs), spmv_masked_tiles_plain(*margs))
+
+
+@pytest.mark.cuda
+def test_bf16_spmm_and_masked_match_plain_on_cuda(cuda_device):
+    """A bf16 stream through the SpMM kernel (F = 5 and 16) and the masked
+    kernel, bit for bit against their plain versions; masked == full in
+    renamed order."""
+    fam = next(f for f in PLUS_TIMES_FAMILIES if f[0] == "bf16-stream")
+    m, wp, x = family_case(fam)
+    op = SpmvOperator(wp, device=cuda_device)
+    assert op.vals.dtype == torch.bfloat16
+    rng = np.random.default_rng(19)
+    for F in (5, SPMM_MAX_F):
+        X = torch.from_numpy(rng.standard_normal(
+            (wp.num_cols, F)).astype(np.float32)).to(cuda_device)
+        sargs = (op.vals, op.idxT, op.tile_part, op.class_map, op.run_start,
+                 op.run_end, build_xt_multi(X, op.cfg, wp.n_parts), op.cfg)
+        _exact(wavepack_spmm(*sargs), spmm_tiles_plain(*sargs))
+    xs, act = sparse_x(m.num_cols, 40, "plus_times", seed=3)
+    x_dev = torch.from_numpy(xs).to(cuda_device)
+    margs = op.masked_args(x_dev, op.active_tiles(act)) + (op.cfg,)
+    before = _kernels.masked_launches
+    acc = wavepack_spmv_masked(*margs)
+    torch.cuda.synchronize()
+    assert _kernels.masked_launches == before + 1
+    _exact(acc, spmv_masked_tiles_plain(*margs))
+    _exact(op.masked(x_dev, act, renamed=True), op(x_dev, renamed=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "fixed"])
+def test_value_types_on_arbitrary_words(dtype, cuda_device):
+    """bf16 values of every magnitude and Q8.24 words over the whole
+    uint32 range (most products and sums saturate) through the SpMV
+    kernel, bit for bit against its plain version on a stream of arbitrary
+    idx words; the empty block comes out at 0."""
+    from hisparse_tpu_torch import SpmvConfig
+    cfg = SpmvConfig(sublanes=256, stripes=128, bank_blocks=2,
+                     two_choice=False, dtype=dtype)
+    (v, idx, part, cmap, start, end, _), rng, dev = fuzz_stream(
+        cfg, cuda_device)
+    if dtype == "bf16":
+        v = v.to(torch.bfloat16)
+        xt = dev(rng.standard_normal((2, cfg.total_blocks, 128, 128)),
+                 np.float32)
+    else:
+        words = lambda shape: dev(rng.integers(0, 1 << 32, shape,
+                                               dtype=np.uint64)
+                                  .astype(np.uint32).view(np.int32))
+        v = words(tuple(v.shape))
+        xt = words((2, cfg.total_blocks, 128, 128))
+    args = (v, idx, part, cmap, start, end, xt)
+    acc = wavepack_spmv(*args, cfg)
+    _exact(acc, spmv_tiles_plain(*args, cfg))
+    assert (acc.reshape(3, cfg.sublanes, 128)[1] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 5, 64, 72])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_bcsr_kernel_matches_plain_on_cuda(dtype, k, cuda_device):
+    """The BCSR kernel against its plain version on a block-structured
+    matrix with empty block rows, each launch counted once; the
+    operator's Y against a float64 product of the operands it rounds."""
+    from hisparse_tpu_torch import (BcsrOperator, CSRMatrix,
+                                    block_structured_csr)
+    from hisparse_tpu_torch.ops.bcsr import bcsr_plain, bcsr_spmm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tdt = torch.float32 if dtype == "fp32" else torch.bfloat16
+    m = block_structured_csr(1024, 768, block_rows=3, seed=5)
+    keep = m.to_scipy().tocsr()
+    keep[256:512] = 0                  # block rows 2 and 3 without blocks
+    keep.eliminate_zeros()
+    m = CSRMatrix.from_scipy(keep)
+    op = BcsrOperator(m, tdt, device=cuda_device)
+    X = torch.from_numpy(np.random.default_rng(k).random(
+        (m.num_cols, k)).astype(np.float32)).to(cuda_device)
+    xp = op.padded_x(X)
+    before = _kernels.bcsr_launches
+    out = bcsr_spmm(op.blocks, op.brow_ptr, op.bcol, xp)
+    torch.cuda.synchronize()
+    assert _kernels.bcsr_launches == before + 1
+    plain = bcsr_plain(op.blocks, op.brow_ptr, op.bcol, xp)
+    tol = 1e-5 if dtype == "fp32" else 1e-4
+    assert float((out - plain).abs().max()) <= tol * float(
+        plain.abs().max())
+    assert (out[256:512] == 0).all()
+    Y = op(X)
+    assert Y.shape == (m.num_rows, k) and Y.dtype == torch.float32
+    a = m.to_scipy().tocsr()
+    a.sum_duplicates()
+    a.data = torch.from_numpy(a.data.astype(np.float32)).to(tdt).double(
+        ).numpy()
+    ref = a @ X.to(tdt).double().cpu().numpy()
+    assert np.abs(Y.double().cpu().numpy() - ref).max() <= tol * np.abs(
+        ref).max()

@@ -44,8 +44,14 @@ def packs(name):
 
 
 def _bytes(a):
-    return None if a is None else (a.dtype.str, a.shape,
-                                   np.ascontiguousarray(a).tobytes())
+    """dtype, shape and bytes of a field; the reference's bf16 values (a
+    2-byte numpy dtype of ml_dtypes) compare as the uint16 bit patterns the
+    port holds."""
+    if a is None:
+        return None
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        a = a.view(np.uint16)
+    return (a.dtype.str, a.shape, np.ascontiguousarray(a).tobytes())
 
 
 def assert_same_pack(a, b):
@@ -118,10 +124,45 @@ def test_col_order_pack_matches_reference():
     assert_same_pack(wr, wp)
 
 
+def test_bf16_bits_match_ml_dtypes():
+    """The port's float32 -> bf16 conversion (round to nearest even from
+    the float32 bits, in numpy) gives ml_dtypes' bits on edge values: ties
+    either way, values just off a tie, the largest finite float32 and the
+    largest bf16 (rounding up to inf), +-inf, NaNs with payloads and signs,
+    subnormals (ties included), signed zeros; and on a million random bit
+    patterns.  ``bf16_bits_to_f32`` widens back exactly."""
+    import ml_dtypes
+    from hisparse_tpu_torch.formats.wavepack import (bf16_bits_to_f32,
+                                                     f32_to_bf16_bits)
+    edge = np.array([
+        0x3F808000, 0x3F818000, 0x3F808001, 0x3F817FFF, 0xBF808000,
+        0x7F7FFFFF, 0x7F7F8000, 0x7F7F7FFF, 0xFF7FFFFF,
+        0x7F800000, 0xFF800000,
+        0x7FC00000, 0xFFC00000, 0x7FC00001, 0x7F800001, 0xFFC12345,
+        0x7FFFFFFF, 0xFF800001,
+        0x00000001, 0x00008000, 0x00018000, 0x00007FFF, 0x007FFFFF,
+        0x80008000, 0x80018000, 0x00800000,
+        0x00000000, 0x80000000], np.uint32)
+    rand = np.random.default_rng(0).integers(0, 1 << 32, 1 << 20,
+                                             dtype=np.uint64)
+    for bits in (edge, rand.astype(np.uint32)):
+        f = bits.view(np.float32)
+        with np.errstate(invalid="ignore"):
+            ref = f.astype(ml_dtypes.bfloat16).view(np.uint16)
+        np.testing.assert_array_equal(f32_to_bf16_bits(f), ref)
+    back = bf16_bits_to_f32(f32_to_bf16_bits(edge.view(np.float32)))
+    with np.errstate(invalid="ignore"):
+        ref = edge.view(np.float32).astype(ml_dtypes.bfloat16).astype(
+            np.float32)
+    np.testing.assert_array_equal(back.view(np.uint32),
+                                  ref.view(np.uint32))
+
+
 def test_port_imports_no_jax():
-    """The port's modules and chip_smoke.py import neither jax nor
-    hisparse_tpu: no import statement names them, and importing every
-    module of the port in a fresh interpreter loads neither."""
+    """The port's modules and chip_smoke.py import neither jax,
+    hisparse_tpu nor ml_dtypes: no import statement names them, and
+    importing every module of the port in a fresh interpreter loads none of
+    them."""
     import pathlib
     import re
     import subprocess
@@ -131,9 +172,10 @@ def test_port_imports_no_jax():
     files = sorted(pkg.rglob("*.py"))
     names = {str(p.relative_to(pkg)) for p in files}
     assert {"ops/spmv.py", "ops/autodiff.py", "ops/train_stream.py",
-            "models/gnn.py", "models/apps.py", "interop.py"} <= names
-    pat = re.compile(r"^\s*(import|from)\s+(jax|hisparse_tpu)(\.|\s|$)",
-                     re.M)
+            "models/gnn.py", "models/apps.py", "interop.py", "ops/bcsr.py",
+            "ops/dense.py", "models/perf_model.py", "models/dse.py"} <= names
+    pat = re.compile(
+        r"^\s*(import|from)\s+(jax|hisparse_tpu|ml_dtypes)(\.|\s|$)", re.M)
     bad = [str(p) for p in files + [root / "chip_smoke.py"]
            if pat.search(p.read_text())]
     assert bad == []
@@ -143,7 +185,8 @@ def test_port_imports_no_jax():
             f"for m in {mods!r} + ['chip_smoke']:\n"
             "    importlib.import_module(m)\n"
             "print(sorted(k for k in sys.modules\n"
-            "             if k.split('.')[0] in ('jax', 'hisparse_tpu')))")
+            "             if k.split('.')[0] in ('jax', 'hisparse_tpu',\n"
+            "                                    'ml_dtypes')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=root,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr

@@ -9,7 +9,10 @@ max|dy| / max(max|y|, 1):
   * 1e-6 against the interpret-mode reference: both decode the stream the
     same way (masked decode, exact transpose), so only the order of fp32
     sums may differ (hub-split recombine, stripe fold);
-  * 1e-4 against the f64 golden ``spmv_f64`` (the suite's gate).
+  * 1e-4 against the f64 golden ``spmv_f64`` (the suite's gate), 8e-3 for
+    bf16 values (one bf16 rounding a term, tests/test_formats.py:433);
+  * Q8.24 packs bit for bit against the reference and ``golden.spmv_fixed``
+    (saturating unsigned terms sum alike in any order).
 
 The CUDA kernel itself runs only on a GPU; its tests are in
 tests/test_torch_cuda.py, which imports no JAX, so that they also run on a
@@ -23,12 +26,14 @@ import torch
 
 import hisparse_tpu as ht
 import hisparse_tpu_torch as hp
+from hisparse_tpu.ops import golden
 from hisparse_tpu.ops.golden import spmv_f64
 from hisparse_tpu_torch.config import LANES
 from hisparse_tpu_torch.ops import _kernels
 from hisparse_tpu_torch.ops.spmv import (block_runs, spmv_tiles_plain,
                                          wavepack_spmv)
-from hisparse_tpu_torch.utils.bench import (FP32_FAMILIES, MULTIBLOCK_FAMILY,
+from hisparse_tpu_torch.utils.bench import (MULTIBLOCK_FAMILY,
+                                           PLUS_TIMES_FAMILIES, family_case,
                                            family_inputs)
 
 TOL_REF = 1e-6
@@ -40,26 +45,37 @@ def _err(a, b):
 
 
 def _case(fam):
-    """(reference matrix, reference pack, port pack, x, JAX variant)."""
+    """(reference matrix, reference pack, port pack, x, JAX variant): the
+    port's from ``utils/bench.family_case``, the reference's made as
+    scripts/tpu_check.py makes it (Q8.24 words for the fixed family)."""
     args, split, xseed = family_inputs(fam)
     m_r = ht.powerlaw_csr(*args)
-    m_p = hp.powerlaw_csr(*args)
+    if fam[1].get("dtype") == "fixed":
+        m_r = dataclasses.replace(m_r, data=golden.float_to_fixed(
+            np.abs(m_r.data) / (4 * 9)))
     wr = ht.pack(m_r, ht.SpmvConfig(**fam[1]), split_max=split)
-    wp = hp.pack(m_p, hp.SpmvConfig(**fam[1]), split_max=split)
-    x = np.random.default_rng(xseed).random(m_r.num_cols).astype(np.float32)
+    m_p, wp, x = family_case(fam)
+    np.testing.assert_array_equal(m_p.data, m_r.data)
     return m_r, wr, wp, x, fam[3]
 
 
-@pytest.mark.parametrize("fam", FP32_FAMILIES + (MULTIBLOCK_FAMILY,),
+@pytest.mark.parametrize("fam", PLUS_TIMES_FAMILIES + (MULTIBLOCK_FAMILY,),
                          ids=lambda f: f[0])
 def test_family_matches_reference(fam):
     m_r, wr, wp, x, variant = _case(fam)
     y_ref = np.asarray(ht.SpmvOperator(wr, interpret=True,
                                        variant=variant)(x))
     y = hp.SpmvOperator(wp, device="cpu")(torch.from_numpy(x))
-    assert y.shape == (m_r.num_rows,) and torch.isfinite(y).all()
+    assert y.shape == (m_r.num_rows,)
+    if wp.config.dtype == "fixed":
+        np.testing.assert_array_equal(y.numpy(), y_ref)
+        np.testing.assert_array_equal(y.numpy(),
+                                      golden.spmv_fixed(m_r, x, m_r.data))
+        return
+    assert torch.isfinite(y).all()
     assert _err(y, y_ref) <= TOL_REF
-    assert _err(y, spmv_f64(m_r, x)) <= TOL_F64
+    tol = 8e-3 if wp.config.dtype == "bf16" else TOL_F64
+    assert _err(y, spmv_f64(m_r, x)) <= tol
 
 
 def test_unpack_device_matches_unpack_y():
@@ -127,35 +143,84 @@ CONFIG_KINDS = {
 
 @pytest.mark.parametrize("kind", list(CONFIG_KINDS))
 def test_unsupported_configs_raise(kind):
-    """bf16 and fixed-point packs raise ``NotImplementedError`` in the
-    operator, the kernel wrapper and the plain version.  min_plus and
-    max_times, which raised until the semiring slice, run and match the
-    JAX operator bit for bit (one rounding per term, exact min and max)."""
+    """The pack kinds that raised until their slice now run and match the
+    JAX operator: min_plus and max_times bit for bit (one rounding per
+    term, exact min and max), bf16 within 1e-6 (fp32 sums in another
+    order), Q8.24 bit for bit and equal to ``golden.spmv_fixed``.  Q8.24
+    packs still refuse SpMM, the masked call and the device unpack with
+    ``ValueError``, as the JAX package does."""
     kw = dict(sublanes=128, bank_blocks=2, stripes=64, **CONFIG_KINDS[kind])
-    cfg = hp.SpmvConfig(**kw)
+    m_r = ht.powerlaw_csr(300, 400, 5, seed=2)
     m = hp.powerlaw_csr(300, 400, 5, seed=2)
-    if kind in ("min_plus", "max_times"):
-        wr = ht.pack(ht.powerlaw_csr(300, 400, 5, seed=2),
-                     ht.SpmvConfig(**kw))
-        x = np.random.default_rng(2).random(m.num_cols).astype(np.float32)
-        y = hp.SpmvOperator(hp.pack(m, cfg), device="cpu")(
-            torch.from_numpy(x))
-        np.testing.assert_array_equal(
-            y.numpy(), np.asarray(ht.SpmvOperator(wr, interpret=True)(x)))
-        return
+    x = np.random.default_rng(2).random(m.num_cols).astype(np.float32)
     if kind == "fixed":
-        m = dataclasses.replace(m, data=np.ones(m.nnz, np.uint32))
-    wp = hp.pack(m, cfg)
-    with pytest.raises(NotImplementedError):
-        hp.SpmvOperator(wp, device="cpu")
-    args = (torch.zeros(1, 128, 128), torch.zeros(1, 128, 128,
-                                                  dtype=torch.int32),
-            torch.zeros(1, dtype=torch.int32), None,
-            torch.zeros(1, dtype=torch.int32),
-            torch.ones(1, dtype=torch.int32), torch.zeros(1, 2, 128, 128))
-    for fn in (wavepack_spmv, spmv_tiles_plain):
-        with pytest.raises(NotImplementedError):
-            fn(*args, cfg)
+        data = golden.float_to_fixed(m.data / 8)
+        m_r = dataclasses.replace(m_r, data=data)
+        m = dataclasses.replace(m, data=data.copy())
+        x = golden.float_to_fixed(x)
+    wr = ht.pack(m_r, ht.SpmvConfig(**kw))
+    op = hp.SpmvOperator(hp.pack(m, hp.SpmvConfig(**kw)), device="cpu")
+    y = op(torch.from_numpy(x)).numpy()
+    y_ref = np.asarray(ht.SpmvOperator(wr, interpret=True)(x))
+    if kind == "bf16":
+        assert _err(y, y_ref) <= TOL_REF
+        return
+    np.testing.assert_array_equal(y, y_ref)
+    if kind != "fixed":
+        return
+    np.testing.assert_array_equal(y, golden.spmv_fixed(m_r, x, m_r.data))
+    X = np.zeros((m.num_cols, 2), np.float32)
+    for call in (lambda: op.matmul(X), lambda: op.masked(x, [0, 1]),
+                 lambda: op.unpack_device(op(x, renamed=True))):
+        with pytest.raises(ValueError):
+            call()
+
+
+# tests/test_fixed.py's cases: (matrix generator and args, values (None:
+# the generator's, scaled by 1/num_cols as sw/host.cpp:480), x scale and
+# shift, split_max, config, x seed)
+FIXED_CASES = {
+    "uniform": (("uniform_sparse_csr", (200, 300, 6), 2), None, 1.0, 0.0,
+                None, dict(stripes=128), 0),
+    "stripes": (("powerlaw_csr", (150, 200, 5), 3), None, 1.0, 0.0, None,
+                dict(stripes=32), 0),
+    "single-saturation": (("uniform_sparse_csr", (8, 8, 1), 4), 200.0, 1.0,
+                          0.0, None, dict(stripes=128), 5),
+    "multi-saturation": (("uniform_sparse_csr", (64, 96, 8), 9), 120.0, 1.0,
+                         0.0, None, dict(stripes=128), 10),
+    "saturating-products-hub-split": (
+        ("uniform_sparse_csr", (48, 64, 8), 11), 50.0, 100.0, 100.0, 4,
+        dict(stripes=128), 12),
+}
+
+
+@pytest.mark.parametrize("case", list(FIXED_CASES))
+def test_fixed_matches_reference_and_golden(case):
+    """Q8.24 SpMV bit for bit against the JAX operator in interpret mode and
+    ``golden.spmv_fixed`` on tests/test_fixed.py's cases: saturating
+    accumulations, saturating products and hub-split rows recombined on
+    the host with saturation."""
+    (gen, args, seed), val, x_scale, x_shift, split, cfg_kw, xseed = \
+        FIXED_CASES[case]
+    kw = dict(sublanes=128, bank_blocks=1, dtype="fixed", **cfg_kw)
+    m = getattr(hp, gen)(*args, seed=seed)
+    data = (np.full(m.nnz, val, np.float32) if val is not None
+            else (m.data / m.num_cols).astype(np.float32))
+    data_raw = golden.float_to_fixed(data)
+    x = golden.float_to_fixed(np.random.default_rng(xseed).random(
+        m.num_cols) * x_scale + x_shift)
+    m_r = dataclasses.replace(getattr(ht, gen)(*args, seed=seed),
+                              data=data_raw)
+    wp = hp.pack(dataclasses.replace(m, data=data_raw.copy()),
+                 hp.SpmvConfig(**kw), split_max=split)
+    if split == 4:
+        assert (np.bincount(wp.perm[wp.perm < m.num_rows]) > 1).any()
+    y = hp.SpmvOperator(wp, device="cpu")(x).numpy()
+    y_ref = np.asarray(ht.SpmvOperator(
+        ht.pack(m_r, ht.SpmvConfig(**kw), split_max=split),
+        interpret=True)(x))
+    np.testing.assert_array_equal(y, y_ref)
+    np.testing.assert_array_equal(y, golden.spmv_fixed(m_r, x, data_raw))
 
 
 def test_block_runs_rejects_split_block():
@@ -168,7 +233,7 @@ def test_block_runs_rejects_split_block():
 def test_cpu_wrapper_runs_plain_version():
     """On CPU tensors the wrapper runs the plain version and launches
     nothing; on a device without a kernel it raises."""
-    _, _, wp, x, _ = _case(FP32_FAMILIES[0])
+    _, _, wp, x, _ = _case(PLUS_TIMES_FAMILIES[0])
     op = hp.SpmvOperator(wp, device="cpu")
     args = op.stream_args(torch.from_numpy(x))
     before = _kernels.launches
