@@ -10,9 +10,12 @@ Phases, in order; any failure raises and exits non-zero:
   2. build the five CUDA kernels (nvcc, sm_90a, one process for each of
      the three sources, in parallel; SpMV, SpMM and the masked SpMV share
      one kernel body) and the native packer (g++) from the sources in this
-     checkout; print the build seconds and each kernel's registers per
-     thread (``ptxas -v``, the sources compiled once more), and whether
-     the committed rates file (models/rates_h100.json) names this card;
+     checkout; print the build seconds, each kernel's registers per
+     thread (``ptxas -v``, the sources compiled once more), for every
+     instantiation of the SpMV / SpMM / masked body its registers, static
+     and dynamic shared memory, spilled bytes and resident CTAs per SM
+     (``_kernels.kernel_info``), and whether the committed rates file
+     (models/rates_h100.json) names this card;
   3. on the plus_times parity families of the JAX package's chip sweep
      (fp32, Q8.24 and bf16 values, plus one two-block pack), hold the SpMV
      kernel against its plain PyTorch version on the same CUDA operands
@@ -30,7 +33,8 @@ Phases, in order; any failure raises and exits non-zero:
      GB/s = bytes/t;
   5. on the same families, the gradient-stream kernel against its plain
      version (max|d| <= 1e-6 of max|out|) and the SpMM kernel against its
-     plain version at F = 1, 5 and 16 (max|d|/max|Y| <= 1e-6); on the
+     plain version at F = 1, 5 and 16 (max|d|/max|Y| <= 1e-6; the bf16
+     stream at F = 1, 3, 5, 8 and 16 bit for bit); on the
      min_plus and max_times families the SpMV kernel bit for bit against
      its plain version and within 1e-4 of the float64 oracle, SpMM at F = 5
      bit for bit; on every fp32 family in each semiring its config allows,
@@ -50,7 +54,9 @@ Phases, in order; any failure raises and exits non-zero:
      streams: y and x_bar (the SpMV kernel on the A and A^T packs) within
      1e-6, both gradient streams bit for bit.  The forward, a whole
      gradient step and the same step through the plain versions are
-     timed, and the forward and the step profiled;
+     timed, and the forward and the step profiled; the gradient stream is
+     timed beside torch.sparse.sampled_addmm on A's CSR pattern (g x^T
+     sampled there: the same dL/dvals in CSR order, a yardstick only);
   7. GCN at full size: two layers, hidden width 16 (Kipf & Welling), on
      the googleplus stand-in, 64 input features and 8 classes from numpy
      seeds, the adjacency packed at phase 4's design point: logits within
@@ -110,8 +116,10 @@ the five kernels' records: launches by path, each time beside its bound
 over the peak named in ``peak``: 67 TFLOP/s fp32 outside the tensor
 cores, or 989 TFLOP/s bf16 on them for the bf16 BCSR kernel) and, where
 one PyTorch call computes the same function, that call's time
-(``library_ms``: cuSPARSE SpMV, SpMM and, for BCSR, CSR SpMM; no PyTorch
-call computes the gradient stream or a masked SpMV); the last is
+(``library_ms``: cuSPARSE SpMV, SpMM, SDDMM (``sampled_addmm``) for the
+gradient stream and, for BCSR, CSR SpMM; no PyTorch call computes a masked
+SpMV), and for the wavepack kernels the instantiation the measured shape
+launches (registers, shared memory, CTAs per SM); the last is
 ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -207,6 +215,56 @@ def print_registers(counts: dict) -> None:
         r = groups[key]
         print(f"registers {key}: {min(r)}-{max(r)} ({len(r)} "
               "instantiations)", flush=True)
+
+
+PACK_KINDS = (("chain", False, False, False), ("bm", False, False, True),
+              ("steal", False, True, False), ("steal-bm", False, True, True),
+              ("idx16", True, True, False), ("idx16-bm", True, True, True))
+
+
+def print_kernel_info(kernels) -> None:
+    """Every instantiation of the SpMV / SpMM / masked body: registers,
+    static + dynamic shared memory, spilled bytes and resident CTAs per SM
+    times threads per CTA, one line per entry, CTA shape, algebra and
+    feature width over the kinds of pack it takes.  The SpMV and masked
+    kernels take narrow CTAs for a pack of one row block of 512 sublanes
+    and wide ones for a pack of many."""
+    for which, Fp, n_blocks in (
+            ("wavepack_spmv", 1, 1), ("wavepack_spmv", 1, 64),
+            ("wavepack_spmv_masked", 1, 1), ("wavepack_spmv_masked", 1, 64),
+            ("wavepack_spmm", 4, 1), ("wavepack_spmm", 8, 1),
+            ("wavepack_spmm", 16, 1)):
+        for sr, dtype in (("plus_times", "fp32"), ("max_times", "fp32"),
+                          ("min_plus", "fp32"), ("plus_times", "bf16"),
+                          ("plus_times", "fixed")):
+            if dtype == "fixed" and which != "wavepack_spmv":
+                continue
+            cells, stages, threads = [], 0, 0
+            for kind, idx16, steal, bm in PACK_KINDS:
+                if steal and (sr == "min_plus" or dtype != "fp32"):
+                    continue
+                i = kernels.kernel_info(which, semiring=sr, dtype=dtype,
+                                        idx16=idx16, steal=steal,
+                                        block_major=bm, Fp=Fp,
+                                        n_blocks=n_blocks)
+                stages, threads = i["stages"], i["threads"]
+                cells.append(f"{kind} {i['registers']}r "
+                             f"{i['static_smem']}+{i['dynamic_smem']}B "
+                             f"spill {i['local_bytes']} "
+                             f"{i['ctas_per_sm']}x{i['threads']} threads/SM")
+            print(f"kernel {which} {dtype} {sr} Fp={Fp} {threads} threads "
+                  f"(ring {stages}): " + "; ".join(cells), flush=True)
+
+
+def instantiation(kernels, which, op, Fp: int = 1) -> dict:
+    """kernel_info of the instantiation ``which`` launches for ``op``'s
+    pack."""
+    cfg = op.cfg
+    return kernels.kernel_info(which, semiring=cfg.semiring,
+                               dtype=cfg.dtype, idx16=cfg.idx16,
+                               steal=cfg.steal_mantissa,
+                               block_major=cfg.block_major, Fp=Fp,
+                               n_blocks=op.wp.n_blocks, S=cfg.sublanes)
 
 
 def nbytes(*tensors) -> int:
@@ -420,7 +478,8 @@ def phase_serving(dev, kernels):
           f" of it", flush=True)
     record = {"max_abs_err": max_abs, "ms": ms_k, "plain_ms": ms_p, **b,
               "library_ms": ms_cs, "ms_host_enqueue_in": ms_k_host,
-              "forward_ms": ms_fwd}
+              "forward_ms": ms_fwd,
+              "instantiation": instantiation(kernels, "wavepack_spmv", op)}
     return m, record, launches
 
 
@@ -461,8 +520,8 @@ def phase_kernel_families(dev) -> tuple:
             sargs = (op.vals, op.idxT, op.tile_part, op.class_map,
                      op.run_start, op.run_end,
                      build_xt_multi(X, cfg, wp.n_parts), cfg)
-            e_s.append(rel_err(to_np(wavepack_spmm(*sargs)),
-                               to_np(spmm_tiles_plain(*sargs))))
+            e_s.append(rel_err(to_np(wavepack_spmm(*sargs, F=F)),
+                               to_np(spmm_tiles_plain(*sargs, F=F))))
         worst_s = max(worst_s, *e_s)
         print(f"family {fam[0]:18s} gradstream kernel-vs-plain {e_g:.3e}  "
               "spmm kernel-vs-plain F=1/5/16 "
@@ -474,13 +533,14 @@ def phase_kernel_families(dev) -> tuple:
     _, wp, _ = family_case(fam)
     op = SpmvOperator(wp, device=dev)
     oks = []
-    for F in (1, 5, 16):
+    for F in (1, 3, 5, 8, 16):
         X = torch.from_numpy(np.random.default_rng(F).standard_normal(
             (wp.num_cols, F)).astype(np.float32)).to(dev)
         sargs = (op.vals, op.idxT, op.tile_part, op.class_map, op.run_start,
                  op.run_end, build_xt_multi(X, op.cfg, wp.n_parts), op.cfg)
-        oks.append(exact(wavepack_spmm(*sargs), spmm_tiles_plain(*sargs)))
-    print(f"family {fam[0]:18s} spmm kernel==plain F=1/5/16 {oks}",
+        oks.append(exact(wavepack_spmm(*sargs, F=F),
+                         spmm_tiles_plain(*sargs, F=F)))
+    print(f"family {fam[0]:18s} spmm kernel==plain F=1/3/5/8/16 {oks}",
           flush=True)
     check(all(oks), f"{fam[0]}: spmm kernel vs plain {oks}")
     return worst_g, worst_s
@@ -528,7 +588,8 @@ def phase_semiring_families(dev) -> dict:
             (wp.num_cols, 5)).astype(np.float32)).to(dev)
         sargs = (op.vals, op.idxT, op.tile_part, op.class_map, op.run_start,
                  op.run_end, build_xt_multi(X, op.cfg, wp.n_parts), op.cfg)
-        ok_m = exact(wavepack_spmm(*sargs), spmm_tiles_plain(*sargs))
+        ok_m = exact(wavepack_spmm(*sargs, F=5),
+                     spmm_tiles_plain(*sargs, F=5))
         print(f"family {fam[0]:22s} spmv kernel==plain {ok_k}, vs f64 "
               f"{e:.3e} (same infinite rows {same_inf}); spmm F=5 "
               f"kernel==plain {ok_m}", flush=True)
@@ -584,7 +645,8 @@ def phase_semiring_families(dev) -> dict:
         oks = (exact(acc, spmv_tiles_plain(*args, op.cfg)),
                exact(wavepack_spmv_masked(*margs), acc),
                exact(spmv_masked_tiles_plain(*margs), acc),
-               exact(wavepack_spmm(*sargs), spmm_tiles_plain(*sargs)))
+               exact(wavepack_spmm(*sargs, F=2),
+                     spmm_tiles_plain(*sargs, F=2)))
         n_nan = int(torch.isnan(acc).sum())
         print(f"NaN case {sr}: {n_nan} NaN slots; spmv, masked, masked "
               f"plain, spmm equal {oks}", flush=True)
@@ -747,6 +809,19 @@ def phase_training(dev, kernels):
                 2.0 * gargs[0].numel())
     ms_gp = device_time_ms(lambda: gradstream_tiles_plain(*gargs), reps=5,
                            warmup=1)
+    # the yardstick: cuSPARSE's SDDMM, g x^T sampled on A's CSR pattern,
+    # the same dL/dvals in CSR order
+    a_cs = csr_tensor(sd.m, dev)
+    g_col, x_row = r0_dev[:, None], x[None, :]
+    sampled = torch.sparse.sampled_addmm(a_cs, g_col, x_row, beta=0.0)
+    rows_cs = torch.repeat_interleave(
+        torch.arange(sd.num_rows, device=dev),
+        a_cs.crow_indices().diff().long())
+    d_sd = max_abs_diff(sampled.values(),
+                        r0_dev[rows_cs] * x[a_cs.col_indices().long()])
+    ms_gl = device_time_ms(lambda: torch.sparse.sampled_addmm(
+        a_cs, g_col, x_row, beta=0.0), reps=20)
+    del a_cs, sampled, rows_cs
 
     def fwd():
         with torch.no_grad():
@@ -766,7 +841,9 @@ def phase_training(dev, kernels):
     nnz = sd.m.nnz
     print(f"time transformer-70 gradstream kernel {ms_gk:.4f} ms, plain "
           f"{ms_gp:.4f} ms (A pack); bound {b_g['bound_ms']:.4f} ms "
-          f"({b_g['bound_by']})", flush=True)
+          f"({b_g['bound_by']}); torch.sparse.sampled_addmm on A's CSR "
+          f"{ms_gl:.4f} ms (max|d| vs g[rows]*x[cols] {d_sd:.3e})",
+          flush=True)
     print(f"time transformer-70 forward {ms_fwd:.4f} ms "
           f"({2 * nnz / ms_fwd / 1e6:.2f} GOPS); gradient step {ms_step:.4f}"
           f" ms kernels, {ms_plain:.4f} ms plain versions", flush=True)
@@ -775,7 +852,8 @@ def phase_training(dev, kernels):
     prof_step = profile_breakdown(step)
     print_profile("transformer-70 gradient step", prof_step)
     return {"max_abs_err": max_abs, "ms": ms_gk, "plain_ms": ms_gp, **b_g,
-            "library_ms": None, "forward_ms": ms_fwd, "step_ms": ms_step,
+            "library_ms": ms_gl, "library_max_abs_diff": d_sd,
+            "forward_ms": ms_fwd, "step_ms": ms_step,
             "plain_step_ms": ms_plain,
             "step_idle_share": prof_step["idle_share"]}, {
         "max_abs_err": spmv_abs, "rel_err_y": e_ky,
@@ -866,8 +944,8 @@ def phase_gcn(dev, kernels, m):
             sargs = (op.vals, op.idxT, op.tile_part, op.class_map,
                      op.run_start, op.run_end,
                      build_xt_multi(H, op.cfg, op.wp.n_parts), op.cfg)
-            acc_k = wavepack_spmm(*sargs)
-            acc_p = spmm_tiles_plain(*sargs)
+            acc_k = wavepack_spmm(*sargs, F=F)
+            acc_p = spmm_tiles_plain(*sargs, F=F)
             max_abs = max(max_abs, float((acc_k - acc_p).abs().max()))
             e_kp = rel_err(to_np(acc_k), to_np(acc_p))
             print(f"gcn spmm {tag} F={F}: kernel vs plain {e_kp:.3e} (gate "
@@ -895,7 +973,9 @@ def phase_gcn(dev, kernels, m):
           f"over the four {max_abs:.3e})", flush=True)
     return {"max_abs_err": max_abs, "ms": ms_k, "plain_ms": ms_p, **b_s,
             "library_ms": ms_cs, "gcn_step_ms": prof["ms"],
-            "step_idle_share": prof["idle_share"]}, launches
+            "step_idle_share": prof["idle_share"],
+            "instantiation": instantiation(kernels, "wavepack_spmm",
+                                           gcn.agg.op, Fp=16)}, launches
 
 
 def levels_reference(m, source: int) -> np.ndarray:
@@ -1178,12 +1258,16 @@ def phase_apps(dev, kernels):
                 "pagerank_cusparse_ms": ms_cs, "sssp_step_ms": ms_ss,
                 "bfs_step_ms": ms_bfs, "sssp_iterations": it_d,
                 "pagerank_rel_err": e_pr, "sssp_rel_err": e_ss,
+                "pokec_instantiation": instantiation(
+                    kernels, "wavepack_spmv", ss.op),
                 "pagerank_pack_ms": ms_pk,
                 "pagerank_pack_bound_ms": b_pk["bound_ms"],
                 "pagerank_pack_parts": op_pr.wp.n_parts}
     rec_masked = {"max_abs_err": max(c["masked_max_abs"] for c in cmps),
                   "ms": ms_mk, "plain_ms": ms_mp,
                   **b_m, "library_ms": None,
+                  "instantiation": instantiation(
+                      kernels, "wavepack_spmv_masked", ss.op),
                   "tiles": int(margs[2].numel()),
                   "of_tiles": ss.wp.num_tiles,
                   "sssp_masked_step_ms": ms_ssm,
@@ -1466,6 +1550,7 @@ def main() -> None:
     print_registers(_kernels.register_counts())
     print(f"build: ptxas -v of the {len(_kernels.LIBRARIES)} sources "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print_kernel_info(_kernels)
     t0 = time.perf_counter()
     check(native.available(), "the native packer did not build (g++)")
     print(f"build: native packer {time.perf_counter() - t0:.1f} s",

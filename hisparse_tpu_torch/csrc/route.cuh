@@ -8,8 +8,9 @@
 //
 // A CTA owns kRows consecutive sublanes s0 .. s0 + kRows - 1 of one tile
 // (kRows * 128 threads, lane l fastest).  Per tile it stages the idx words
-// those sublanes gather through (stage_idx), then each thread routes its
-// dest slot (s, l) (route):
+// those sublanes gather through in shared memory (stage_idx here, or the
+// SpMV kernel's cp.async ring), then each thread routes its dest slot
+// (s, l) (route):
 //
 //   src  the crossbar lane: the low 7 bits of the value with
 //        steal_mantissa (the value's stolen bits are then cleared), else
@@ -52,23 +53,25 @@ __device__ __forceinline__ void stage_idx(int32_t (&sidx)[kLanes][kRows],
            s0 % kLanes + q]);
 }
 
-// Offset of the routed x of dest slot (s0 + rr, l) of tile t inside one
-// partition's XT page.  With kSteal, vbits (the slot's value bits) comes
-// back with its stolen src bits cleared.
-template <bool kSteal, bool kBlockMajor>
+// Offset of the routed x of dest slot (s0 + rr, l) inside one partition's
+// XT page, for a CTA of kR sublanes (kRows here, 8 in the SpMV kernel).
+// sidx holds the staged idx words (int32, or the raw int16 words
+// of an idx16 pack, sign-extended here as the plain version widens them);
+// crow the K class ids class_map[t, s0 / 128, :] of the tile's group
+// (block-major packs only).  With kSteal, vbits (the slot's value bits)
+// comes back with its stolen src bits cleared.
+template <bool kSteal, bool kBlockMajor, typename W, int kR>
 __device__ __forceinline__ int route(uint32_t& vbits,
-                                     const int32_t (&sidx)[kLanes][kRows],
-                                     int rr, int l, int t, int s0,
-                                     const int32_t* __restrict__ cmap,
-                                     int G, int K, int n_ops) {
+                                     const W (&sidx)[kLanes][kR], int rr,
+                                     int l, const int32_t* crow, int n_ops) {
   int src;
   if (kSteal) {
     src = vbits & 0x7F;
     vbits &= 0xFFFFFF80u;
   } else {
-    src = (sidx[l][rr] >> 11) & 0x7F;
+    src = (static_cast<int32_t>(sidx[l][rr]) >> 11) & 0x7F;
   }
-  const int32_t w = sidx[src][rr];
+  const int32_t w = static_cast<int32_t>(sidx[src][rr]);
   const int h = w & 0x7F;
   int op;
   if (kSteal) {
@@ -79,10 +82,7 @@ __device__ __forceinline__ int route(uint32_t& vbits,
     op = (w >> 7) & 0xF;
     if (op >= n_ops) op = 0;
   }
-  const int blk =
-      kBlockMajor
-          ? cmap[(static_cast<int64_t>(t) * G + s0 / kLanes) * K + op]
-          : op;
+  const int blk = kBlockMajor ? crow[op] : op;
   return (blk * kLanes + src) * kLanes + h;
 }
 

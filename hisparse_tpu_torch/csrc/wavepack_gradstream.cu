@@ -74,8 +74,11 @@ wavepack_gradstream_kernel(const Params p) {
   stage_idx(sidx, idxT, tile, s0);
   __syncthreads();
   uint32_t vbits = kSteal ? p.vals[slot] : 0u;
-  const int off = route<kSteal, kBlockMajor>(vbits, sidx, rr, l, t, s0,
-                                             p.cmap, S / kLanes, p.K,
+  const int32_t* crow =
+      kBlockMajor ? p.cmap + (static_cast<int64_t>(t) * (S / kLanes) +
+                              s0 / kLanes) * p.K
+                  : nullptr;
+  const int off = route<kSteal, kBlockMajor>(vbits, sidx, rr, l, crow,
                                              p.n_ops);
   const float xv =
       p.xt[static_cast<int64_t>(p.tile_part[t]) * p.CT * kPage + off];

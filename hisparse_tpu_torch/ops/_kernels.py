@@ -51,7 +51,7 @@ _ENTRY = {
                              _P, _I, _I, _I, _I, _I, _P]),
     "wavepack_spmm": ("wavepack_spmv", "wavepack_spmm_launch",
                       [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                       _I, _I, _I, _I, _I, _I, _P]),
+                       _I, _I, _I, _I, _I, _I, _I, _P]),
     "wavepack_spmv_masked": ("wavepack_spmv", "wavepack_spmv_masked_launch",
                              [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                               _P, _P, _P, _I, _I, _I, _I, _I, _P]),
@@ -59,6 +59,10 @@ _ENTRY = {
              [_P, _I, _P, _P, _P, _P, _I, _I, _P]),
 }
 KERNELS = tuple(_ENTRY)
+# wavepack_spmv.cu's report on the instantiation an entry point launches
+_INFO = ("wavepack_spmv", "wavepack_kernel_info", [_I] * 9 + [_P])
+INFO_FIELDS = ("registers", "static_smem", "dynamic_smem", "local_bytes",
+               "ctas_per_sm", "stages", "threads")
 # the wavepack kernels' semiring and value-type arguments
 # (csrc/wavepack_spmv.cu)
 SEMIRINGS = {"plus_times": 0, "min_plus": 1, "max_times": 2}
@@ -169,6 +173,9 @@ def load() -> dict:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             fns[name] = fn
+        info = getattr(libs[_INFO[0]], _INFO[1])
+        info.argtypes, info.restype = _INFO[2], ctypes.c_int
+        fns["kernel_info"] = info
         _fns = fns
         return fns
 
@@ -240,19 +247,38 @@ def launch_wavepack_gradstream(vals, idxT, mask, tile_part, tile_block,
     gradstream_launches += 1
 
 
+def kernel_info(which: str, *, semiring: str, dtype: str, idx16: bool,
+                steal: bool, block_major: bool, Fp: int = 1,
+                n_blocks: int = 1, S: int = 512) -> dict:
+    """What the instantiation that kernel ``which`` (``"wavepack_spmv"``,
+    ``"wavepack_spmv_masked"`` or ``"wavepack_spmm"`` at Fp features)
+    launches for these pack flags and a pack of n_blocks row blocks of S
+    sublanes (which set the SpMV's CTA shape) uses on this card:
+    ``INFO_FIELDS``, from cudaFuncGetAttributes and
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor.  Raises for flags no
+    instantiation takes."""
+    kinds = ("wavepack_spmv", "wavepack_spmv_masked", "wavepack_spmm")
+    out = (ctypes.c_int * len(INFO_FIELDS))()
+    _check(f"{which} info", load()["kernel_info"](
+        kinds.index(which), SEMIRINGS[semiring], VTYPES[dtype], int(idx16),
+        int(steal), int(block_major), Fp, n_blocks, S, out))
+    return dict(zip(INFO_FIELDS, out))
+
+
 def launch_wavepack_spmm(vals, idxT, tile_part, cmap, run_start, run_end,
                          xt, out, *, semiring: str, dtype: str, steal: bool,
                          block_major: bool, n_ops: int, K: int) -> None:
     """Launch the SpMM kernel on the current stream (checked by
-    ops/spmv.py:wavepack_spmm); xt is (n_parts, F, CT, 128, 128)."""
+    ops/spmv.py:wavepack_spmm): xt is (n_parts, CT, 128, 128, Fp), out
+    (F, n_blocks*S, 128) with F <= Fp."""
     global spmm_launches
     rc = load()["wavepack_spmm"](
         vals.data_ptr(), idxT.data_ptr(), int(idxT.dtype == torch.int16),
         int(steal), int(block_major), SEMIRINGS[semiring], VTYPES[dtype],
         tile_part.data_ptr(), _ptr(cmap), run_start.data_ptr(),
         run_end.data_ptr(), xt.data_ptr(), out.data_ptr(),
-        run_start.shape[0], vals.shape[1], n_ops, K, xt.shape[2],
-        xt.shape[1], _stream(vals))
+        run_start.shape[0], vals.shape[1], n_ops, K, xt.shape[1],
+        out.shape[0], xt.shape[4], _stream(vals))
     _check("wavepack_spmm", rc)
     spmm_launches += 1
 

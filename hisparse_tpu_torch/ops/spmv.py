@@ -27,7 +27,8 @@ it.  min and max propagate a NaN, as ``jnp.minimum`` / ``torch.minimum``
 do.
 
 SpMM runs the same steps for up to 16 feature columns at a time
-(``build_xt_multi``, ``wavepack_spmm`` / ``spmm_tiles_plain``).  The masked
+(``build_xt_multi``, whose XT keeps a slot's features innermost, and
+``wavepack_spmm`` / ``spmm_tiles_plain``).  The masked
 call (``wavepack_spmv_masked`` / ``spmv_masked_tiles_plain``) walks only
 the tiles ``SpmvOperator.active_tiles`` selects: those whose partition, or
 whose block-major (partition, class) pairs, can touch an active column.
@@ -191,10 +192,31 @@ def build_xt(x: torch.Tensor, cfg: SpmvConfig, n_parts: int) -> torch.Tensor:
 
 def build_xt_multi(X: torch.Tensor, cfg: SpmvConfig,
                    n_parts: int) -> torch.Tensor:
-    """F-stacked vector loader (``_build_xt_multi``): (num_cols, F) ->
-    (n_parts, F, CT, 128, 128), partition-leading like the JAX layout."""
-    return torch.stack([build_xt(X[:, f], cfg, n_parts)
-                        for f in range(X.shape[1])], dim=1)
+    """Multi-feature vector loader: (num_cols, F) -> (n_parts, CT, 128,
+    128, Fp), XT[p, b, l, h, f] = X[p*VB + (b*128 + h)*128 + l, f] plus the
+    two-choice second copy of every block, with Fp = F rounded up to a
+    multiple of 4 and the padding features 0.  Feature-innermost, so the
+    SpMM kernel reads a routed slot's features as Fp/4 16-byte loads of
+    one row; XT[..., f] is ``build_xt(X[:, f])``.  One pass over X for all
+    features (float packs only)."""
+    B = cfg.bank_blocks
+    F = X.shape[1]
+    Fp = -(-F // 4) * 4
+    x_padded = torch.nn.functional.pad(
+        X.to(torch.float32),
+        (0, Fp - F, 0, n_parts * cfg.vb_cols - X.shape[0]))
+    xt = x_padded.reshape(n_parts, B, 128, LANES, Fp).transpose(2, 3)
+    if cfg.two_choice:
+        if cfg.block_major:
+            x2 = x_padded.reshape(n_parts, 128, B, LANES, Fp)
+            second = [torch.roll(x2[:, :, b], bank_shift(b),
+                                 dims=2).transpose(1, 2)
+                      for b in range(B)]
+        else:
+            second = [torch.roll(xt[:, b], bank_shift(b), dims=1)
+                      for b in range(B)]
+        xt = torch.cat([xt, torch.stack(second, dim=1)], dim=1)
+    return xt.contiguous()
 
 
 def block_runs(tile_block: np.ndarray, n_blocks: int):
@@ -270,13 +292,15 @@ def route_plain(vals, idxT, tile_part, cmap, cfg: SpmvConfig, CT: int):
     return v, off
 
 
-def _accumulate_runs(vals, idxT, tile_part, cmap, run_start, run_end, xts,
-                     cfg: SpmvConfig, tile_ids=None) -> torch.Tensor:
+def _accumulate_runs(vals, idxT, tile_part, cmap, run_start, run_end, xt,
+                     n_feat: int, cfg: SpmvConfig,
+                     tile_ids=None) -> torch.Tensor:
     """The plain versions' accumulation: each block's semiring sum of its
     run's terms, in run order, from the semiring's identity.  A run
     indexes ``tile_ids`` (the masked call) if given, else the stream.
-    ``xts`` holds one (n_parts, CT, 128, 128) XT per feature; returns the
-    (F, n_blocks*S, 128) accumulators.
+    ``xt`` is build_xt's (n_parts, CT, 128, 128) or build_xt_multi's
+    (n_parts, CT, 128, 128, Fp); returns the (n_feat, n_blocks*S, 128)
+    accumulators of its first n_feat features.
 
     The run space is walked in chunks of ``PLAIN_CHUNK_SLOTS`` slots,
     routed once for all features, the accumulator carried from chunk to
@@ -285,7 +309,9 @@ def _accumulate_runs(vals, idxT, tile_part, cmap, run_start, run_end, xts,
     sr = algebra(cfg)
     n_blocks = run_start.shape[0]
     n_runs = vals.shape[0] if tile_ids is None else tile_ids.shape[0]
-    acc = torch.full((len(xts), n_blocks, S, LANES), IDENTITY[sr],
+    fp = xt.shape[4] if xt.dim() == 5 else 1
+    xflat = xt.reshape(-1)
+    acc = torch.full((n_feat, n_blocks, S, LANES), IDENTITY[sr],
                      dtype=torch.int64 if sr == "fixed" else torch.float32,
                      device=vals.device)
     starts, ends = run_start.long(), run_end.long()
@@ -301,15 +327,16 @@ def _accumulate_runs(vals, idxT, tile_part, cmap, run_start, run_end, xts,
                  else tile_ids[c0:c1].long())
         v, off = route_plain(vals[tiles], idxT[tiles], tile_part[tiles],
                              None if cmap is None else cmap[tiles], cfg,
-                             xts[0].shape[1])
-        for f, xt in enumerate(xts):
-            x = xt.reshape(-1)[off]
+                             xt.shape[1])
+        off = off * fp
+        for f in range(n_feat):
+            x = xflat[off + f]
             term = semiring_term(v, _u32(x) if sr == "fixed" else x, sr)
             for k in range(depth):
                 live = torch.nonzero(lengths > k).squeeze(1)
                 acc[f, live] = semiring_add(acc[f, live],
                                             term[lo[live] + (k - c0)], sr)
-    acc = acc.reshape(len(xts), n_blocks * S, LANES)
+    acc = acc.reshape(n_feat, n_blocks * S, LANES)
     return _to_words(acc) if sr == "fixed" else acc
 
 
@@ -321,7 +348,7 @@ def spmv_tiles_plain(vals, idxT, tile_part, cmap, run_start, run_end, xt,
     Returns the (n_blocks*S, 128) accumulator.  Each block folds its tiles
     in stream order, every operation rounded once, as the kernel does."""
     return _accumulate_runs(vals, idxT, tile_part, cmap, run_start, run_end,
-                            [xt], cfg)[0]
+                            xt, 1, cfg)[0]
 
 
 def spmv_masked_tiles_plain(vals, idxT, tile_ids, tile_part, cmap,
@@ -332,7 +359,7 @@ def spmv_masked_tiles_plain(vals, idxT, tile_ids, tile_part, cmap,
     each block's run into ``tile_ids``."""
     check_float(cfg, "the masked path")
     return _accumulate_runs(vals, idxT, tile_part, cmap, run_start, run_end,
-                            [xt], cfg, tile_ids=tile_ids)[0]
+                            xt, 1, cfg, tile_ids=tile_ids)[0]
 
 
 def gradstream_tiles_plain(vals, idxT, mask, tile_part, tile_block, cmap,
@@ -349,21 +376,24 @@ def gradstream_tiles_plain(vals, idxT, mask, tile_part, tile_block, cmap,
 
 
 def spmm_tiles_plain(vals, idxT, tile_part, cmap, run_start, run_end, xt,
-                     cfg: SpmvConfig) -> torch.Tensor:
+                     cfg: SpmvConfig, F: int | None = None) -> torch.Tensor:
     """Plain PyTorch version of the SpMM kernel (``_resident_spmm_kernel``
-    for fp32): ``xt`` is (n_parts, F, CT, 128, 128); returns the (F,
-    n_blocks*S, 128) accumulators.  The routing is decoded once and the
-    features run one after another, each folded in stream order."""
+    for fp32): ``xt`` is build_xt_multi's (n_parts, CT, 128, 128, Fp);
+    returns the (F, n_blocks*S, 128) accumulators of its first F features
+    (all Fp by default).  The routing is decoded once and the features run
+    one after another, each folded in stream order."""
     check_float(cfg, "matmul")
     return _accumulate_runs(vals, idxT, tile_part, cmap, run_start, run_end,
-                            [xt[:, f] for f in range(xt.shape[1])], cfg)
+                            xt, xt.shape[4] if F is None else F, cfg)
 
 
-def _check_operands(name, vals, checks, cfg: SpmvConfig) -> None:
+def _check_operands(name, vals, checks, cfg: SpmvConfig,
+                    aligned=()) -> None:
     """Raise ``ValueError`` unless vals is (T, S, 128) with S % 128 == 0,
     of the pack's value dtype, and every (tensor, dtype, shape) of
     ``checks`` is on vals's device, of that dtype and shape, and
-    contiguous."""
+    contiguous; the tensors ``aligned`` must start on a 16-byte boundary
+    (the kernel copies or loads them in 16-byte chunks)."""
     if vals.dim() != 3 or vals.shape[2] != LANES or vals.shape[1] % 128:
         raise ValueError(f"{name}: vals must be (T, S, {LANES}) with "
                          "S % 128 == 0")
@@ -377,6 +407,9 @@ def _check_operands(name, vals, checks, cfg: SpmvConfig) -> None:
                              f"expected {tuple(shape)} {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} operands must be contiguous")
+    for t in aligned:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: operand not 16-byte aligned")
 
 
 def _stream_checks(vals, idxT, tile_part, cmap, cfg: SpmvConfig):
@@ -434,7 +467,7 @@ def wavepack_spmv(vals, idxT, tile_part, cmap, run_start, run_end, xt,
         raise ValueError("wavepack_spmv: one run per block")
     _check_operands("wavepack_spmv", vals, _stream_checks(
         vals, idxT, tile_part, cmap, cfg) + _run_checks(run_start, run_end)
-        + [_xt_check(xt, cfg)], cfg)
+        + [_xt_check(xt, cfg)], cfg, aligned=(vals, idxT))
     out = torch.empty(run_start.shape[0] * vals.shape[1], LANES,
                       dtype=acc_dtype(cfg), device=vals.device)
     _kernels.launch_wavepack_spmv(
@@ -468,7 +501,7 @@ def wavepack_spmv_masked(vals, idxT, tile_ids, tile_part, cmap, run_start,
     _check_operands("wavepack_spmv_masked", vals, _stream_checks(
         vals, idxT, tile_part, cmap, cfg) + _run_checks(run_start, run_end)
         + [(tile_ids, torch.int32, tile_ids.shape), _xt_check(xt, cfg)],
-        cfg)
+        cfg, aligned=(vals, idxT))
     out = torch.empty(run_start.shape[0] * vals.shape[1], LANES,
                       dtype=torch.float32, device=vals.device)
     _kernels.launch_wavepack_spmv_masked(
@@ -513,10 +546,10 @@ def wavepack_gradstream(vals, idxT, mask, tile_part, tile_block, cmap,
 
 
 def wavepack_spmm(vals, idxT, tile_part, cmap, run_start, run_end, xt,
-                  cfg: SpmvConfig) -> torch.Tensor:
-    """The tile stream -> the (F, n_blocks*S, 128) accumulators of F
-    feature columns, ``xt`` the (n_parts, F, CT, 128, 128) bank blocks of
-    :func:`build_xt_multi` with 1 <= F <= ``SPMM_MAX_F``.
+                  cfg: SpmvConfig, F: int | None = None) -> torch.Tensor:
+    """The tile stream -> the (F, n_blocks*S, 128) accumulators of the
+    first F features of ``xt``, build_xt_multi's (n_parts, CT, 128, 128,
+    Fp) with Fp a multiple of 4 up to ``SPMM_MAX_F`` (F = Fp by default).
 
     On CUDA tensors this launches ``csrc/wavepack_spmv.cu`` (the SpMV
     kernel's body with F accumulators); on CPU tensors it runs
@@ -525,17 +558,18 @@ def wavepack_spmm(vals, idxT, tile_part, cmap, run_start, run_end, xt,
     check_float(cfg, "matmul")
     if _device_of("wavepack_spmm", vals) == "cpu":
         return spmm_tiles_plain(vals, idxT, tile_part, cmap, run_start,
-                                run_end, xt, cfg)
-    if run_start.dim() != 1 or xt.dim() != 5 or not (
-            1 <= xt.shape[1] <= SPMM_MAX_F):
+                                run_end, xt, cfg, F)
+    Fp = xt.shape[-1]
+    F = Fp if F is None else F
+    if run_start.dim() != 1 or xt.dim() != 5 or Fp % 4 or not (
+            1 <= F <= Fp <= SPMM_MAX_F):
         raise ValueError("wavepack_spmm: one run per block and an xt of "
-                         f"(n_parts, F, CT, 128, 128), 1 <= F <= "
-                         f"{SPMM_MAX_F}")
-    n_parts, F = xt.shape[:2]
+                         "(n_parts, CT, 128, 128, Fp), Fp a multiple of 4, "
+                         f"1 <= F <= Fp <= {SPMM_MAX_F}")
     _check_operands("wavepack_spmm", vals, _stream_checks(
         vals, idxT, tile_part, cmap, cfg) + _run_checks(run_start, run_end)
-        + [(xt, torch.float32, (n_parts, F, cfg.total_blocks, 128, 128))],
-        cfg)
+        + [(xt, torch.float32, (xt.shape[0], cfg.total_blocks, 128, 128,
+                                Fp))], cfg, aligned=(vals, idxT, xt))
     out = torch.empty(F, run_start.shape[0] * vals.shape[1], LANES,
                       dtype=torch.float32, device=vals.device)
     _kernels.launch_wavepack_spmm(
@@ -791,12 +825,13 @@ class SpmvOperator(torch.nn.Module):
             X = X[self.col_order]
         outs = []
         for f0 in range(0, X.shape[1], SPMM_MAX_F):
-            xt = build_xt_multi(X[:, f0:f0 + SPMM_MAX_F], self.cfg,
-                                self.wp.n_parts)
+            Xc = X[:, f0:f0 + SPMM_MAX_F]
+            fc = Xc.shape[1]
             acc = wavepack_spmm(self.vals, self.idxT, self.tile_part,
                                 self.class_map, self.run_start,
-                                self.run_end, xt, self.cfg)
-            fc = acc.shape[0]
+                                self.run_end,
+                                build_xt_multi(Xc, self.cfg, self.wp.n_parts),
+                                self.cfg, F=fc)
             outs.append(stripe_fold(acc.reshape(-1, LANES), self.cfg,
                                     fc * self.wp.n_blocks).reshape(fc, -1))
         y_ren = torch.cat(outs)

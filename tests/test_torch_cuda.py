@@ -22,6 +22,8 @@ kernel sums each output in another order than ``torch.bmm``: fp32 blocks
 within 1e-5 of max|Y|, bf16 blocks on the tensor cores (whose fp32
 accumulation is not IEEE-ordered) within 1e-4.
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -117,16 +119,20 @@ FUZZ_CASES = {
     "bm-k8-steal-idx16": dict(bank_blocks=8, two_choice=False,
                               block_major=True, classes_per_group=8,
                               steal_mantissa=True, idx16=True),
+    "bm-k2-steal-tc-idx16": dict(bank_blocks=4, two_choice=True,
+                                 block_major=True, classes_per_group=2,
+                                 steal_mantissa=True, idx16=True),
 }
 
 
-def fuzz_stream(cfg, dev):
-    """6 tiles of arbitrary idx words (b-fields out of range included)
-    over 3 row blocks, the middle block empty, tiles spread over 2 column
-    partitions: (vals, idxT, tile_part, cmap, run_start, run_end,
-    tile_block) on dev, and a numpy generator for more operands."""
+def fuzz_stream(cfg, dev, runs=(2, 0, 4)):
+    """Tiles of arbitrary idx words (b-fields out of range included) in
+    row blocks of ``runs`` tiles each (by default 6 tiles over 3 blocks,
+    the middle block empty), tiles spread over 2 column partitions:
+    (vals, idxT, tile_part, cmap, run_start, run_end, tile_block) on dev,
+    and a numpy generator for more operands."""
     rng = np.random.default_rng(11)
-    T, S, n_parts = 6, cfg.sublanes, 2
+    T, S, n_parts = sum(runs), cfg.sublanes, 2
     h = rng.integers(0, 128, (T, S, 128))
     b = rng.integers(0, 16, (T, S, 128))
     v = rng.standard_normal((T, S, 128)).astype(np.float32)
@@ -144,10 +150,11 @@ def fuzz_stream(cfg, dev):
     def dev_(a, dtype=None):
         return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
 
+    end = np.cumsum(runs)
     stream = (dev_(v), dev_(idx), dev_(rng.integers(0, n_parts, T), np.int32),
               dev_(cmap, np.int32) if cfg.block_major else None,
-              dev_([0, 2, 2], np.int32), dev_([2, 2, 6], np.int32),
-              dev_([0, 0, 2, 2, 2, 2], np.int32))
+              dev_(end - np.asarray(runs), np.int32), dev_(end, np.int32),
+              dev_(np.repeat(np.arange(len(runs)), runs), np.int32))
     return stream, rng, dev_
 
 
@@ -169,11 +176,11 @@ def test_kernel_matches_plain_on_arbitrary_words(case, cuda_device):
     torch.testing.assert_close(acc, plain, rtol=0, atol=0)
     assert (acc.reshape(3, S, 128)[1] == 0).all()
 
-    xtm = dev(rng.standard_normal((2, 5, cfg.total_blocks, 128, 128)),
+    xtm = dev(rng.standard_normal((2, cfg.total_blocks, 128, 128, 8)),
               np.float32)
-    args = (v, idx, part, cmap, start, end, xtm)
-    accm = wavepack_spmm(*args, cfg)
-    torch.testing.assert_close(accm, spmm_tiles_plain(*args, cfg), rtol=0,
+    args = (v, idx, part, cmap, start, end, xtm, cfg)
+    accm = wavepack_spmm(*args, F=5)
+    torch.testing.assert_close(accm, spmm_tiles_plain(*args, F=5), rtol=0,
                                atol=0)
     assert (accm.reshape(5, 3, S, 128)[:, 1] == 0).all()
 
@@ -216,10 +223,11 @@ def test_gradstream_and_spmm_match_plain_on_cuda(fam, cuda_device):
         sargs = (op.vals, op.idxT, op.tile_part, op.class_map, op.run_start,
                  op.run_end, build_xt_multi(X, cfg, wp.n_parts), cfg)
         before = _kernels.spmm_launches
-        acc = wavepack_spmm(*sargs)
+        acc = wavepack_spmm(*sargs, F=F)
         torch.cuda.synchronize()
         assert _kernels.spmm_launches == before + 1
-        assert _err(acc, spmm_tiles_plain(*sargs)) <= 1e-6
+        assert acc.shape == (F, wp.n_blocks * S, 128)
+        assert _err(acc, spmm_tiles_plain(*sargs, F=F)) <= 1e-6
         y_ren = op.matmul(X, renamed=True)
         assert _err(y_ren[F - 1], op(X[:, F - 1], renamed=True)) <= 1e-6
 
@@ -415,10 +423,10 @@ def test_semiring_kernels_on_arbitrary_words(case, sr, cuda_device):
     acc = wavepack_spmv(*args, cfg)
     _exact(acc, spmv_tiles_plain(*args, cfg))
     assert (acc.reshape(3, S, 128)[1] == ident).all()
-    xtm = dev(rng.standard_normal((2, 5, cfg.total_blocks, 128, 128)),
+    xtm = dev(rng.standard_normal((2, cfg.total_blocks, 128, 128, 8)),
               np.float32)
-    args = (v, idx, part, cmap, start, end, xtm)
-    _exact(wavepack_spmm(*args, cfg), spmm_tiles_plain(*args, cfg))
+    args = (v, idx, part, cmap, start, end, xtm, cfg)
+    _exact(wavepack_spmm(*args, F=5), spmm_tiles_plain(*args, F=5))
     # tiles 1, 3 and 5: block 0 keeps one, block 2 two
     margs = (v, idx, dev([1, 3, 5], np.int32), part, cmap,
              dev([0, 1, 1], np.int32), dev([1, 1, 3], np.int32), xt, cfg)
@@ -519,3 +527,140 @@ def test_bcsr_kernel_matches_plain_on_cuda(dtype, k, cuda_device):
     ref = a @ X.to(tdt).double().cpu().numpy()
     assert np.abs(Y.double().cpu().numpy() - ref).max() <= tol * np.abs(
         ref).max()
+
+
+def _algebra_cfg(alg, case):
+    """An SpmvConfig of FUZZ_CASES[case] in algebra ``alg``: a semiring,
+    or "bf16" (plus_times over bf16 values)."""
+    from hisparse_tpu_torch import SpmvConfig
+    kw = dict(FUZZ_CASES[case])
+    if alg == "bf16":
+        kw["dtype"] = "bf16"
+    else:
+        kw["semiring"] = alg
+    return SpmvConfig(sublanes=256, stripes=128, **kw)
+
+
+# each algebra on a pack it allows: min_plus and bf16 never steal
+ALGEBRA_CASES = {"plus_times": "bm-k2-steal-tc-idx16",
+                 "max_times": "chain-steal-idx16", "min_plus": "bm-k2",
+                 "bf16": "chain"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [1, 3, 5, 8, 16])
+@pytest.mark.parametrize("alg", list(ALGEBRA_CASES))
+def test_spmm_feature_counts_bit_equal(alg, F, cuda_device):
+    """The SpMM kernel at F features (Fp = 4, 8 or 16 in the XT) bit for
+    bit against its plain version on a stream of arbitrary idx words, each
+    feature equal to the SpMV kernel on its column's build_xt, the empty
+    block at the identity."""
+    cfg = _algebra_cfg(alg, ALGEBRA_CASES[alg])
+    (v, idx, part, cmap, start, end, _), rng, dev = fuzz_stream(
+        cfg, cuda_device)
+    if alg == "bf16":
+        v = v.to(torch.bfloat16)
+    X = dev(rng.standard_normal((2 * cfg.vb_cols - 3, F)), np.float32)
+    xt = build_xt_multi(X, cfg, 2)
+    assert xt.shape[-1] == -(-F // 4) * 4
+    args = (v, idx, part, cmap, start, end, xt, cfg)
+    before = _kernels.spmm_launches
+    acc = wavepack_spmm(*args, F=F)
+    torch.cuda.synchronize()
+    assert _kernels.spmm_launches == before + 1
+    assert acc.shape == (F, 3 * cfg.sublanes, 128)
+    _exact(acc, spmm_tiles_plain(*args, F=F))
+    for f in range(F):
+        _exact(acc[f], wavepack_spmv(v, idx, part, cmap, start, end,
+                                     build_xt(X[:, f], cfg, 2), cfg))
+    ident = {"min_plus": float("inf"), "max_times": float("-inf")}
+    assert (acc.reshape(F, 3, cfg.sublanes, 128)[:, 1]
+            == ident.get(alg, 0.0)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["chain", "bm-k2-steal-tc-idx16"])
+def test_pipeline_short_and_ragged_runs(case, cuda_device):
+    """Runs of 0, 1 and 2 tiles (shorter than the ring's depth), of 4, and
+    of 7, 3 and 5 (not multiples of it), through the SpMV, SpMM (F = 5)
+    and masked kernels, bit for bit against their plain versions; the
+    masked selection skips tiles inside runs and whole runs."""
+    from hisparse_tpu_torch.ops.spmv import block_runs
+    runs = (0, 1, 2, 7, 3, 4, 0, 5)
+    cfg = _algebra_cfg("plus_times", case)
+    (v, idx, part, cmap, start, end, block), rng, dev = fuzz_stream(
+        cfg, cuda_device, runs=runs)
+    xt = dev(rng.standard_normal((2, cfg.total_blocks, 128, 128)),
+             np.float32)
+    args = (v, idx, part, cmap, start, end, xt, cfg)
+    _exact(wavepack_spmv(*args), spmv_tiles_plain(*args))
+    X = dev(rng.standard_normal((2 * cfg.vb_cols, 5)), np.float32)
+    sargs = (v, idx, part, cmap, start, end, build_xt_multi(X, cfg, 2), cfg)
+    _exact(wavepack_spmm(*sargs, F=5), spmm_tiles_plain(*sargs, F=5))
+    # gaps inside runs; block 2 (tiles 1-2) and block 5 (13-16) unselected
+    sel = np.array([0, 3, 5, 6, 9, 11, 12, 17, 19, 21], np.int32)
+    s_, e_ = block_runs(block.cpu().numpy()[sel], len(runs))
+    margs = (v, idx, dev(sel), part, cmap, dev(s_), dev(e_), xt, cfg)
+    acc = wavepack_spmv_masked(*margs)
+    _exact(acc, spmv_masked_tiles_plain(*margs))
+    assert (acc.reshape(len(runs), cfg.sublanes, 128)[[0, 2, 5, 6]]
+            == 0).all()
+
+
+@pytest.mark.cuda
+def test_kernel_info_keeps_occupancy(cuda_device):
+    """Every SpMV and masked instantiation, in both CTA shapes (narrow for
+    a pack of one row block, wide for a pack of many), keeps the SM's
+    2,048 threads resident without spilling, and no SpMM instantiation
+    spills; each runs a ring of at least 3 stages."""
+    kinds = [("plus_times", "fp32"), ("max_times", "fp32"),
+             ("min_plus", "fp32"), ("plus_times", "bf16"),
+             ("plus_times", "fixed")]
+    flags = [(False, False, False), (False, False, True),
+             (False, True, False), (False, True, True),
+             (True, True, False), (True, True, True)]
+    n = 0
+    for (sr, dtype), (idx16, steal, bm) in itertools.product(kinds, flags):
+        if (steal and (sr == "min_plus" or dtype != "fp32")):
+            continue
+        for which, Fp, n_blocks in (
+                ("wavepack_spmv", 1, 1), ("wavepack_spmv", 1, 64),
+                ("wavepack_spmv_masked", 1, 1),
+                ("wavepack_spmv_masked", 1, 64), ("wavepack_spmm", 4, 1),
+                ("wavepack_spmm", 8, 1), ("wavepack_spmm", 16, 1)):
+            if dtype == "fixed" and which != "wavepack_spmv":
+                continue
+            info = _kernels.kernel_info(which, semiring=sr, dtype=dtype,
+                                        idx16=idx16, steal=steal,
+                                        block_major=bm, Fp=Fp,
+                                        n_blocks=n_blocks)
+            assert info["local_bytes"] == 0, (which, sr, dtype, info)
+            assert info["stages"] >= 3
+            if Fp == 1:
+                assert info["ctas_per_sm"] * info["threads"] == 2048, (
+                    which, sr, dtype, info)
+                assert info["threads"] == (512 if n_blocks == 1 else 1024)
+            n += 1
+    assert n == 116
+
+
+@pytest.mark.cuda
+def test_misaligned_operands_raise(cuda_device):
+    """A stream or XT that does not start on a 16-byte boundary (the
+    kernels copy it in 16-byte chunks) raises before any launch."""
+    m, wp, x = family_case(FP32_FAMILIES[0])
+    op = SpmvOperator(wp, device=cuda_device)
+    args = list(op.stream_args(torch.from_numpy(x).to(cuda_device)))
+    buf = torch.empty(op.vals.numel() + 1, device=cuda_device)
+    args[0] = buf[1:].view(op.vals.shape).copy_(op.vals)
+    before = _kernels.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        wavepack_spmv(*args, op.cfg)
+    assert _kernels.launches == before
+    X = torch.zeros(wp.num_cols, 4, device=cuda_device)
+    xt = build_xt_multi(X, op.cfg, wp.n_parts)
+    xbuf = torch.empty(xt.numel() + 1, device=cuda_device)
+    xt = xbuf[1:].view(xt.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        wavepack_spmm(op.vals, op.idxT, op.tile_part, op.class_map,
+                      op.run_start, op.run_end, xt, op.cfg)

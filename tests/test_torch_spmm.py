@@ -23,8 +23,9 @@ import torch
 import hisparse_tpu as ht
 import hisparse_tpu_torch as hp
 from hisparse_tpu_torch.ops import _kernels
-from hisparse_tpu_torch.ops.spmv import (SPMM_MAX_F, build_xt_multi,
-                                         spmm_tiles_plain, wavepack_spmm)
+from hisparse_tpu_torch.ops.spmv import (SPMM_MAX_F, build_xt,
+                                         build_xt_multi, spmm_tiles_plain,
+                                         wavepack_spmm)
 
 TOL_REF = 1e-6
 
@@ -108,10 +109,12 @@ def test_spmm_wrapper_on_cpu():
     args = (op.vals, op.idxT, op.tile_part, op.class_map, op.run_start,
             op.run_end, xt, op.cfg)
     before = _kernels.spmm_launches
-    acc = wavepack_spmm(*args)
+    F = X.shape[1]
+    acc = wavepack_spmm(*args, F=F)
     assert _kernels.spmm_launches == before
-    assert acc.shape == (X.shape[1], op.wp.n_blocks * op.cfg.sublanes, 128)
-    torch.testing.assert_close(acc, spmm_tiles_plain(*args), rtol=0, atol=0)
+    assert acc.shape == (F, op.wp.n_blocks * op.cfg.sublanes, 128)
+    torch.testing.assert_close(acc, spmm_tiles_plain(*args, F=F), rtol=0,
+                               atol=0)
     meta = [a.to("meta") if isinstance(a, torch.Tensor) else a
             for a in args]
     with pytest.raises(ValueError, match="no wavepack_spmm kernel"):
@@ -133,3 +136,34 @@ def test_spmm_rejects_bad_input():
     with pytest.raises(ValueError, match="float packs"):
         hp.spmm(hp.pack(m_fixed, cfg), np.zeros((m.num_cols, 2), np.float32),
                 device="cpu")
+
+
+# build_xt_multi's packs: (config, column partitions)
+XT_PACKS = {
+    "chain": (dict(sublanes=128, bank_blocks=2, stripes=128,
+                   two_choice=True), 1),
+    "bm-two-choice": (dict(sublanes=128, bank_blocks=2, stripes=128,
+                           block_major=True, classes_per_group=2,
+                           two_choice=True), 1),
+    "multipart": (dict(sublanes=128, bank_blocks=1, stripes=32), 3),
+}
+
+
+@pytest.mark.parametrize("F", [1, 3, 5, 8, 16])
+@pytest.mark.parametrize("pack", list(XT_PACKS))
+def test_build_xt_multi_is_stacked_build_xt(pack, F):
+    """The feature-innermost XT, element for element: XT[..., f] is
+    build_xt of column f, and the features up to Fp (F rounded up to a
+    multiple of 4) are zero."""
+    kw, n_parts = XT_PACKS[pack]
+    cfg = hp.SpmvConfig(**kw)
+    X = torch.from_numpy(np.random.default_rng(F).standard_normal(
+        (n_parts * cfg.vb_cols - 37, F)).astype(np.float32))
+    xt = build_xt_multi(X, cfg, n_parts)
+    Fp = -(-F // 4) * 4
+    assert xt.shape == (n_parts, cfg.total_blocks, 128, 128, Fp)
+    assert xt.dtype == torch.float32 and xt.is_contiguous()
+    stacked = torch.stack([build_xt(X[:, f], cfg, n_parts)
+                           for f in range(F)], dim=-1)
+    torch.testing.assert_close(xt[..., :F], stacked, rtol=0, atol=0)
+    assert (xt[..., F:] == 0).all()
