@@ -7,8 +7,8 @@ Phases, in order; any failure raises and exits non-zero:
   1. require a CUDA device; print the card's name and power limit as
      ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
      gives them;
-  2. build the five CUDA kernels (nvcc, sm_90a, one process for each of
-     the three sources, in parallel; SpMV, SpMM and the masked SpMV share
+  2. build the six CUDA kernels (nvcc, sm_90a, one process for each of
+     the four sources, in parallel; SpMV, SpMM and the masked SpMV share
      one kernel body) and the native packer (g++) from the sources in this
      checkout; print the build seconds, each kernel's registers per
      thread (``ptxas -v``, the sources compiled once more), for every
@@ -30,7 +30,10 @@ Phases, in order; any failure raises and exits non-zero:
      and without its host enqueue), its plain version, the whole forward
      and a cuSPARSE CSR SpMV (torch.sparse_csr_tensor @ x, a yardstick
      only) are timed on CUDA events and printed with GOPS = 2*nnz/t and
-     GB/s = bytes/t;
+     GB/s = bytes/t; the renamed -> natural fold kernel bit for bit
+     against its plain version and Wavepack.unpack_y, timed beside its
+     bound, its plain version and index_add_ over perm (the earlier
+     unpack, a yardstick only), and its longest hub row timed alone;
   5. on the same families, the gradient-stream kernel against its plain
      version (max|d| <= 1e-6 of max|out|) and the SpMM kernel against its
      plain version at F = 1, 5 and 16 (max|d|/max|Y| <= 1e-6; the bf16
@@ -39,8 +42,13 @@ Phases, in order; any failure raises and exits non-zero:
      its plain version and within 1e-4 of the float64 oracle, SpMM at F = 5
      bit for bit; on every fp32 family in each semiring its config allows,
      the masked kernel bit for bit against its plain version with 40
-     active columns, and masked == full; a NaN in x in the same slots
-     through the SpMV, masked and SpMM kernels and their plain versions;
+     active columns, and masked == full (natural order); a NaN in x in
+     the same slots through the SpMV, masked and SpMM kernels and their
+     plain versions; the fold on hub-split packs (the min_plus and
+     max_times families and the Q8.24 family here, googleplus in phase 4,
+     the fixed row in phase 9): two forwards, two masked calls and two
+     matmul calls (float packs) bit-equal to each other in natural order
+     and to Wavepack.unpack_y of the same call's renamed y;
   6. training at full size: the transformer-70 stand-in of the suite's
      training row (bench.py, diffspmv_tracking_row), uniform_sparse_csr(
      512, 33288, 9986, seed=70), at that row's configs: StreamDiffSpmv
@@ -63,7 +71,8 @@ Phases, in order; any failure raises and exits non-zero:
      1e-4 of a float64 scipy oracle, the cross-entropy falling over 3 SGD
      steps, the SpMM counter above 0; the SpMM kernel against its plain
      version on A-hat and A-hat^T at F = 8 and 16 (1e-6); one training
-     step is timed and profiled, the SpMM kernel timed at F = 16.
+     step is timed and profiled, the SpMM kernel timed at F = 16, and the
+     fold of A-hat's F = 16 renamed rows beside index_add_.
 
   8. the graph apps at the suite's sizes (bench.py:736-800): PageRank
      (20 iterations) and BFS (from vertex 0, dense and masked) on
@@ -87,7 +96,9 @@ Phases, in order; any failure raises and exits non-zero:
      committed card rates) on bcsr-spmm-16k (block_structured_csr(16384,
      16384, block_rows=24, seed=7), bench.py:897-921), the six
      transformer_* matrices of the pruned-NN suite (bench.py:533-537) and
-     googleplus, each pick printed; then, counted, bcsr-spmm-16k through
+     googleplus, each pick printed, bcsr-spmm-16k's required to be bcsr
+     and, once both arms are timed, the faster of its BCSR and dense
+     forwards; then, counted, bcsr-spmm-16k through
      BcsrOperator bf16 with 64 right-hand sides from default_rng(1) (as
      bench.py's row runs it, whatever the pick), each transformer matrix
      picked dense through DenseOperator bf16, and the fixed-point row
@@ -103,21 +114,23 @@ Phases, in order; any failure raises and exits non-zero:
      (torch.sparse.mm(csr_fp32, X)) and a PyTorch BSR product
      (torch.sparse_bsr_tensor @ X, bf16), yardsticks only, and beside the
      dense arm on the same product (SpmmOperator bf16); the fixed row's
-     kernel beside its bound, in GOPS; each dense pick's forward beside its
-     bound and the wavepack forward of the same matrix.
+     kernel beside its bound, in GOPS, and its forward (the device fold,
+     one copy to the host); each dense pick's forward beside its bound and
+     the wavepack forward of the same matrix.
 
 The kernels' times keep the host's enqueue out
 (``device_time_ms(queued=True)``); the forwards, steps and plain versions
 are timed with it, as their callers wait for it.  A profile
 (``utils/bench.profile_breakdown``) prints a call's device time by op and
 its device idle share.  The line before the last is a JSON object with
-the five kernels' records: launches by path, each time beside its bound
+the six kernels' records: launches by path, each time beside its bound
 (the larger of the bytes it must move over 3.35 TB/s and its operations
 over the peak named in ``peak``: 67 TFLOP/s fp32 outside the tensor
 cores, or 989 TFLOP/s bf16 on them for the bf16 BCSR kernel) and, where
 one PyTorch call computes the same function, that call's time
 (``library_ms``: cuSPARSE SpMV, SpMM, SDDMM (``sampled_addmm``) for the
-gradient stream and, for BCSR, CSR SpMM; no PyTorch call computes a masked
+gradient stream, for BCSR, CSR SpMM, and for the fold ``index_add_`` over
+perm, which sums in no fixed order; no PyTorch call computes a masked
 SpMV), and for the wavepack kernels the instantiation the measured shape
 launches (registers, shared memory, CTAs per SM); the last is
 ``{"ok": true, "device": {...}}``.
@@ -182,7 +195,8 @@ def counts(kernels) -> dict:
             "wavepack_gradstream": kernels.gradstream_launches,
             "wavepack_spmm": kernels.spmm_launches,
             "wavepack_spmv_masked": kernels.masked_launches,
-            "bcsr": kernels.bcsr_launches}
+            "bcsr": kernels.bcsr_launches,
+            "row_fold": kernels.fold_launches}
 
 
 def reset_counts(kernels) -> None:
@@ -191,6 +205,7 @@ def reset_counts(kernels) -> None:
     kernels.spmm_launches = 0
     kernels.masked_launches = 0
     kernels.bcsr_launches = 0
+    kernels.fold_launches = 0
 
 
 def print_registers(counts: dict) -> None:
@@ -205,7 +220,8 @@ def print_registers(counts: dict) -> None:
         m = re.search(r"wavepack_kernelI([jt])[is]Lb\dELb\dELi(\d+)ELi(\d)"
                       r"ELb(\d)E", sym)
         other = next((k for k in ("wavepack_gradstream_kernel",
-                                  "bcsr_bf16_kernel", "bcsr_f32_kernel")
+                                  "bcsr_bf16_kernel", "bcsr_f32_kernel",
+                                  "row_fold_kernel")
                       if k in sym), sym)
         key = (f"wavepack_kernel {'bf16' if m[1] == 't' else '32-bit'} "
                f"kF={m[2]} {names[m[3]]}"
@@ -339,6 +355,111 @@ def to_np(t) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+def fold_bound(y, idx, ptr, long_rows, out) -> dict:
+    """The fold's bound: y, the plan and the output each moved once, one
+    operation a partial and feature."""
+    F = y.shape[0] if y.dim() == 2 else 1
+    return bound(nbytes(y, idx, ptr, long_rows, out), float(F * idx.numel()))
+
+
+def fold_record(what, op, y_ren, dev) -> dict:
+    """The fold kernel on ``op``'s renamed y (``(n,)`` or ``(F, n)``): bit
+    for bit against its plain version and ``Wavepack.unpack_y``, timed
+    beside its bound, its plain version and ``index_add_`` over perm (the
+    earlier unpack, in no fixed order), and its longest row's range timed
+    alone (one warp walking it)."""
+    import torch
+    from hisparse_tpu_torch.ops.spmv import (FOLD_THREAD_MAX, row_fold,
+                                             row_fold_plain)
+    from hisparse_tpu_torch.utils.bench import device_time_ms
+    alg = op.cfg.semiring
+    plan = (op.fold_idx, op.fold_ptr, op.fold_long)
+    out_k = row_fold(y_ren, *plan, alg)
+    out_p = row_fold_plain(y_ren, op.fold_idx, op.fold_ptr, alg)
+    ys = y_ren.reshape(-1, y_ren.shape[-1]).cpu().numpy()
+    ref = torch.from_numpy(np.stack([op.wp.unpack_y(v) for v in ys])).to(
+        dev).reshape(out_k.shape)
+    ok = exact(out_k, out_p) and exact(out_k, ref)
+    check(ok, f"{what}: fold kernel vs plain / unpack_y not bit-equal")
+    n = op.wp.num_rows
+    ms_k = device_time_ms(lambda: row_fold(y_ren, *plan, alg), reps=50,
+                          queued=True)
+    ms_p = device_time_ms(lambda: row_fold_plain(y_ren, op.fold_idx,
+                                                 op.fold_ptr, alg),
+                          reps=3, warmup=1)
+    lead = y_ren.shape[:-1]
+
+    def index_add():
+        return torch.zeros(lead + (n + 1,), device=dev).index_add_(
+            -1, op.perm, y_ren)
+
+    ms_ia = device_time_ms(index_add, reps=50, queued=True)
+    lengths = (op.fold_ptr[1:] - op.fold_ptr[:-1]).cpu().numpy()
+    r = int(lengths.argmax())
+    L = int(lengths[r])
+    beg = int(op.fold_ptr[r])
+    one = (op.fold_idx[beg:beg + L].contiguous(),
+           torch.tensor([0, L], dtype=torch.int32, device=dev),
+           torch.tensor([0] if L > FOLD_THREAD_MAX else [],
+                        dtype=torch.int32, device=dev))
+    ms_long = device_time_ms(lambda: row_fold(y_ren, *one, alg), reps=50,
+                             queued=True)
+    b = fold_bound(y_ren, *plan, out_k)
+    print(f"fold {what}: {tuple(y_ren.shape)} renamed -> {n} rows, "
+          f"{op.fold_idx.numel()} partials, {op.fold_long.numel()} hub rows "
+          f"of more than {FOLD_THREAD_MAX}; kernel == plain == unpack_y {ok};"
+          f" kernel {ms_k:.4f} ms, bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}), plain {ms_p:.4f} ms, index_add_ {ms_ia:.4f} "
+          f"ms; longest row {L} partials alone {ms_long:.4f} ms", flush=True)
+    return {"max_abs_err": max_abs_diff(out_k, out_p), "ms": ms_k,
+            "plain_ms": ms_p, **b, "library_ms": ms_ia,
+            "longest_row_partials": L, "longest_row_ms": ms_long,
+            "partials": int(op.fold_idx.numel()),
+            "hub_rows": int(op.fold_long.numel())}
+
+
+def natural_order_checks(what, op, x, active=None, X=None) -> int:
+    """Two forwards (and, given ``active`` and ``X``, two masked calls and
+    two matmul calls) bit-equal to each other in natural order and to
+    ``Wavepack.unpack_y`` of the same call's renamed y; ``x`` is natural
+    order (Q8.24 words for a Q8.24 pack).  Returns the comparisons made."""
+    import torch
+    wp = op.wp
+    if op.cfg.dtype == "fixed":
+        y1, y2 = op(x).numpy(), op(x).numpy()
+        ren = op(x, renamed=True).view(torch.int32).cpu().numpy().view(
+            np.uint32)
+        ok = np.array_equal(y1, y2) and np.array_equal(y1, wp.unpack_y(ren))
+        print(f"natural order {what}: forward twice == unpack_y {ok}",
+              flush=True)
+        check(ok, f"{what}: Q8.24 natural-order forward not fixed")
+        return 2
+    calls = [("forward", lambda r: op(x, renamed=r))]
+    if active is not None:
+        calls.append(("masked", lambda r: op.masked(x, active, renamed=r)))
+    n = 0
+    line = []
+    for name, call in calls:
+        a, b = call(False), call(False)
+        ref = torch.from_numpy(wp.unpack_y(to_np(call(True)))).to(a.device)
+        ok = exact(a, b) and exact(a, ref)
+        line.append(f"{name} {ok}")
+        check(ok, f"{what}: natural-order {name} not fixed")
+        n += 2
+    if X is not None:
+        a, b = op.matmul(X), op.matmul(X)
+        ren = to_np(op.matmul(X, renamed=True))
+        ref = torch.from_numpy(np.stack([wp.unpack_y(v) for v in ren],
+                                        1)).to(a.device)
+        ok = exact(a, b) and exact(a, ref)
+        line.append(f"matmul F={X.shape[1]} {ok}")
+        check(ok, f"{what}: natural-order matmul not fixed")
+        n += 2
+    print(f"natural order {what}: twice and == unpack_y: " + ", ".join(line),
+          flush=True)
+    return n
+
+
 def family_x(op, x, dev):
     """A family's x on the card in packed column order: Q8.24 words for a
     fixed-point pack."""
@@ -399,8 +520,8 @@ def phase_families(dev) -> dict:
 
 
 def phase_serving(dev, kernels):
-    """Phase 4: googleplus through SpmvOperator; returns (matrix, record,
-    launches of the path)."""
+    """Phase 4: googleplus through SpmvOperator; returns (matrix, the SpMV
+    kernel's record, the fold's record, launches of the path)."""
     import torch
     from hisparse_tpu_torch import SpmvConfig, SpmvOperator, pack, powerlaw_csr
     from hisparse_tpu_torch.ops.golden import spmv_f64
@@ -480,7 +601,19 @@ def phase_serving(dev, kernels):
               "library_ms": ms_cs, "ms_host_enqueue_in": ms_k_host,
               "forward_ms": ms_fwd,
               "instantiation": instantiation(kernels, "wavepack_spmv", op)}
-    return m, record, launches
+    # the fold on googleplus's renamed y, and natural order fixed run to
+    # run: forward, masked over 10% of the columns, matmul at F = 4
+    rec_fold = fold_record("googleplus", op, op(x, renamed=True), dev)
+    rng = np.random.default_rng(12)
+    active = np.flatnonzero(rng.random(m.num_cols) < 0.1)
+    xs = torch.zeros_like(x)
+    xs[torch.from_numpy(active).to(dev)] = x[torch.from_numpy(active).to(
+        dev)]
+    X = torch.from_numpy(rng.random((m.num_cols, 4)).astype(
+        np.float32)).to(dev)
+    rec_fold["natural_order_comparisons"] = natural_order_checks(
+        "googleplus", op, xs, active, X)
+    return m, record, rec_fold, launches
 
 
 def phase_kernel_families(dev) -> tuple:
@@ -617,11 +750,7 @@ def phase_semiring_families(dev) -> dict:
             margs = masked_operands(op, x_dev, act)
             ok = exact(wavepack_spmv_masked(*margs),
                        spmv_masked_tiles_plain(*margs))
-            # plus_times in renamed order: index_add_ adds a split row's
-            # partials in no fixed order on the card
-            ren = sr == "plus_times"
-            same = exact(op.masked(x_dev, act, renamed=ren),
-                         op(x_dev, renamed=ren))
+            same = exact(op.masked(x_dev, act), op(x_dev))
             line.append(f"{sr} {margs[2].numel()}/{wp.num_tiles} tiles "
                         f"kernel==plain {ok} masked==full {same}")
             check(ok and same, f"{fam[0]} {sr}: masked kernel {ok}, masked "
@@ -652,8 +781,25 @@ def phase_semiring_families(dev) -> dict:
               f"plain, spmm equal {oks}", flush=True)
         check(all(oks) and n_nan > 0, f"NaN case {sr}: {oks}, {n_nan}")
         n_exact += 4
+    # the fold: natural order fixed run to run and equal to unpack_y on
+    # the hub-split min_plus and max_times families (split_max 16) and the
+    # Q8.24 family
+    n_nat = 0
+    for fam in SEMIRING_FAMILIES:
+        m, wp, x = family_case(fam)
+        op = SpmvOperator(wp, device=dev)
+        sr = wp.config.semiring
+        xs, act = sparse_x(m.num_cols, MASKED_ACTIVE, sr, seed=4)
+        X = torch.from_numpy(np.random.default_rng(6).random(
+            (wp.num_cols, 3)).astype(np.float32)).to(dev)
+        n_nat += natural_order_checks(fam[0], op,
+                                      torch.from_numpy(xs).to(dev), act, X)
+    fam = next(f for f in PLUS_TIMES_FAMILIES if f[1].get("dtype") == "fixed")
+    _, wp, x = family_case(fam)
+    n_nat += natural_order_checks(fam[0], SpmvOperator(wp, device=dev), x)
     return {"worst_semiring_rel_err_f64": worst_f64,
-            "bit_equal_comparisons": n_exact}
+            "bit_equal_comparisons": n_exact,
+            "natural_order_comparisons": n_nat}
 
 
 def grad_step(sd, x, y_t, spmv_fn, gradstream_fn, r=None):
@@ -861,8 +1007,8 @@ def phase_training(dev, kernels):
 
 
 def phase_gcn(dev, kernels, m):
-    """Phase 7: the GCN on googleplus; returns the SpMM record and the
-    launches of the path."""
+    """Phase 7: the GCN on googleplus; returns the SpMM record, the fold's
+    record at F = 16 and the launches of the path."""
     import torch
     from hisparse_tpu_torch import GCN, SpmvConfig
     from hisparse_tpu_torch.ops.spmv import (build_xt_multi,
@@ -971,11 +1117,16 @@ def phase_gcn(dev, kernels, m):
           f"{ms_k:.4f} ms, plain {ms_p:.4f} ms, cuSPARSE csr @ X {ms_cs:.4f}"
           f" ms; bound {b_s['bound_ms']:.4f} ms ({b_s['bound_by']}) (max|d| "
           f"over the four {max_abs:.3e})", flush=True)
+    # the fold of A-hat's 16 renamed feature rows, as the aggregation's
+    # natural-order output takes it
+    rec_fold = fold_record("gcn A-hat F=16", gcn.agg.op,
+                           gcn.agg.op.matmul(H16, renamed=True), dev)
     return {"max_abs_err": max_abs, "ms": ms_k, "plain_ms": ms_p, **b_s,
             "library_ms": ms_cs, "gcn_step_ms": prof["ms"],
             "step_idle_share": prof["idle_share"],
             "instantiation": instantiation(kernels, "wavepack_spmm",
-                                           gcn.agg.op, Fp=16)}, launches
+                                           gcn.agg.op, Fp=16)}, \
+        rec_fold, launches
 
 
 def levels_reference(m, source: int) -> np.ndarray:
@@ -1317,7 +1468,8 @@ def phase_dispatch(dev, kernels, m_gplus):
     from hisparse_tpu_torch.ops.golden import (float_to_fixed, spmv_f64,
                                                spmv_fixed_vec)
     from hisparse_tpu_torch.ops.spmv import spmv_tiles_plain, wavepack_spmv
-    from hisparse_tpu_torch.utils.bench import device_time_ms, gbps, gops
+    from hisparse_tpu_torch.utils.bench import (device_time_ms, gbps, gops,
+                                               profile_breakdown)
     t0 = time.perf_counter()
     m_b = block_structured_csr(*BCSR16K["shape"],
                                block_rows=BCSR16K["block_rows"],
@@ -1353,6 +1505,8 @@ def phase_dispatch(dev, kernels, m_gplus):
               f"density {m.nnz / (m.num_rows * m.num_cols):.4f} -> "
               f"{picks[name]} ({dt:.2f} s); ns/nnz before calibration: "
               + ", ".join(f"{k} {v:.5f}" for k, v in t.items()), flush=True)
+    check(picks["bcsr-spmm-16k"] == "bcsr",
+          f"choose_format sends bcsr-spmm-16k to {picks['bcsr-spmm-16k']}")
 
     # the operators of the path: bcsr-spmm-16k through BcsrOperator (bf16,
     # bench.py:906, whatever the pick, as bench.py's row runs it), each
@@ -1395,6 +1549,7 @@ def phase_dispatch(dev, kernels, m_gplus):
     print(f"fixed row: y == spmv_fixed_vec {ok_f}; kernel == plain {ok_fk}",
           flush=True)
     check(ok_f and ok_fk, f"fixed row: y {ok_f}, kernel vs plain {ok_fk}")
+    n_nat = natural_order_checks("fixed row", op_f, x_f)
 
     # bcsr-spmm-16k against float64 and the plain version
     check(Y.shape == (m_b.num_rows, BCSR_RHS) and bool(
@@ -1454,11 +1609,22 @@ def phase_dispatch(dev, kernels, m_gplus):
     b_sd = bound(op_sd.inner.stream_bytes + nbytes(X) // 2
                  + nbytes(out_p), 2.0 * op_sd.inner.a.numel() * BCSR_RHS,
                  "bf16_tensor")
+    # the picked arm's forward against the dense arm's, each as a user
+    # calls it and as device time (queued: the host's enqueue, which
+    # both forwards wait on and which varies with the host, held out)
+    ms_bf = device_time_ms(lambda: op_b(X), reps=20)
+    ms_bfq = device_time_ms(lambda: op_b(X), reps=20, queued=True)
+    ms_sdq = device_time_ms(lambda: op_sd(X), reps=20, queued=True)
     del op_sd
     print(f"time bcsr-spmm-16k dense arm (SpmmOperator bf16, "
-          f"{m_b.num_rows}x{m_b.num_cols}): {ms_sd:.4f} ms, bound "
-          f"{b_sd['bound_ms']:.4f} ms ({b_sd['bound_by']}); vs the BCSR "
-          f"plain version {e_sd:.2e}", flush=True)
+          f"{m_b.num_rows}x{m_b.num_cols}): {ms_sd:.4f} ms ({ms_sdq:.4f} "
+          f"queued), bound {b_sd['bound_ms']:.4f} ms ({b_sd['bound_by']}); "
+          f"vs the BCSR plain version {e_sd:.2e}; the BCSR arm's forward "
+          f"(BcsrOperator bf16) {ms_bf:.4f} ms ({ms_bfq:.4f} queued)",
+          flush=True)
+    check(ms_bfq < ms_sdq, f"bcsr-spmm-16k: the picked BCSR arm "
+          f"({ms_bfq:.4f} ms of device time) is not the faster measured arm "
+          f"(dense {ms_sdq:.4f} ms)")
     print(f"time bcsr-spmm-16k ({BCSR_RHS} rhs): kernel {ms_bk:.4f} ms "
           f"({gops(m_b.nnz * BCSR_RHS, ms_bk):.1f} GOPS of the true nonzeros,"
           f" {gbps(op_b.stream_bytes, ms_bk):.1f} GB/s of blocks); bound "
@@ -1473,12 +1639,14 @@ def phase_dispatch(dev, kernels, m_gplus):
     ms_fp = device_time_ms(lambda: spmv_tiles_plain(*args_f, op_f.cfg),
                            reps=3, warmup=1)
     ms_ff = device_time_ms(lambda: op_f(x_f), reps=20)
+    print_profile("fixed row forward", profile_breakdown(lambda: op_f(x_f)))
     b_f = spmv_bound(args_f, acc_f)
     print(f"time fixed row: kernel {ms_fk:.4f} ms ({gops(m_f.nnz, ms_fk):.2f}"
           f" GOPS, {gbps(wp_f.stream_bytes, ms_fk):.1f} GB/s); bound "
           f"{b_f['bound_ms']:.4f} ms ({b_f['bound_by']}), "
           f"{b_f['bound_ms'] / ms_fk:.3f} of it; plain {ms_fp:.4f} ms; "
-          f"forward with the host recombine {ms_ff:.4f} ms", flush=True)
+          f"forward (device fold, one copy to the host) {ms_ff:.4f} ms",
+          flush=True)
 
     # times: each dense pick's forward beside its bound and the wavepack
     # forward of the same matrix
@@ -1512,12 +1680,15 @@ def phase_dispatch(dev, kernels, m_gplus):
                 **b_b, "library_ms": ms_cs, "library_bsr_bf16_ms": ms_bsr,
                 "rel_err_kernel_vs_plain": e_kp, "rel_err_f64": e_y,
                 "dense_arm_ms": ms_sd, "dense_arm_bound_ms": b_sd["bound_ms"],
+                "forward_ms": ms_bf, "forward_queued_ms": ms_bfq,
+                "dense_arm_queued_ms": ms_sdq,
                 "fp32_rel_err_f64": {str(k): v for k, v in e_32.items()},
                 "blocks": nb, "block_fill": op_b.block_fill}
     rec_rows = {"picks": picks, "fixed_row_ms": ms_fk,
                 "fixed_row_plain_ms": ms_fp, "fixed_row_forward_ms": ms_ff,
                 "fixed_row_bound_ms": b_f["bound_ms"],
-                "fixed_row_gops": gops(m_f.nnz, ms_fk), "dense": rows}
+                "fixed_row_gops": gops(m_f.nnz, ms_fk), "dense": rows,
+                "fixed_row_natural_order_comparisons": n_nat}
     return rec_bcsr, rec_rows, launches
 
 
@@ -1563,12 +1734,14 @@ def main() -> None:
 
     dev = torch.device("cuda")
     fams = phase_families(dev)                           # phase 3
-    m, rec_spmv, l_serve = phase_serving(dev, _kernels)  # phase 4
+    m, rec_spmv, rec_fold, l_serve = phase_serving(
+        dev, _kernels)                                   # phase 4
     worst_g, worst_s = phase_kernel_families(dev)        # phase 5
     semiring = phase_semiring_families(dev)
     rec_grad, rec_train_spmv, l_train = phase_training(
         dev, _kernels)                                   # phase 6
-    rec_spmm, l_gcn = phase_gcn(dev, _kernels, m)        # phase 7
+    rec_spmm, rec_fold_gcn, l_gcn = phase_gcn(
+        dev, _kernels, m)                                # phase 7
     rec_apps, rec_masked, rec_spmm_paged, l_apps = phase_apps(
         dev, _kernels)                                   # phase 8
     rec_bcsr, rec_rows, l_dispatch = phase_dispatch(
@@ -1596,6 +1769,14 @@ def main() -> None:
         ("wavepack_spmv_masked", "wavepack_spmv.cu", f"{ref}:497, {ref}:509",
          rec_masked, {}),
         ("bcsr", "bcsr.cu", "hisparse_tpu/ops/bcsr.py:56", rec_bcsr, {}),
+        ("row_fold", "row_fold.cu",
+         "hisparse_tpu/formats/wavepack.py:133 (Wavepack.unpack_y, host "
+         "numpy; no pallas_call)", rec_fold,
+         {"gcn_f16": rec_fold_gcn,
+          "natural_order_comparisons": rec_fold.pop(
+              "natural_order_comparisons")
+          + semiring["natural_order_comparisons"]
+          + rec_rows["fixed_row_natural_order_comparisons"]}),
     ]
     record = {"kernels": []}
     for name, source, replaces, rec, extra in rows:

@@ -13,8 +13,8 @@ plain versions run.
 Each kernel has its own launch counter, raised by one per launch made
 through its ``launch_*`` function, so a run can show that its main path
 went through the kernel: ``launches`` (the wavepack SpMV),
-``gradstream_launches``, ``spmm_launches``, ``masked_launches`` and
-``bcsr_launches``.
+``gradstream_launches``, ``spmm_launches``, ``masked_launches``,
+``bcsr_launches`` and ``fold_launches`` (the renamed -> natural fold).
 """
 from __future__ import annotations
 
@@ -33,7 +33,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
 # one shared library per csrc/<name>.cu
-LIBRARIES = ("wavepack_spmv", "wavepack_gradstream", "bcsr")
+LIBRARIES = ("wavepack_spmv", "wavepack_gradstream", "bcsr", "row_fold")
 # --split-compile=0 optimises the kernels' template instantiations (50 in
 # wavepack_spmv.cu) on every core
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -56,7 +56,9 @@ _ENTRY = {
                              [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                               _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "bcsr": ("bcsr", "bcsr_spmm_launch",
-             [_P, _I, _P, _P, _P, _P, _I, _I, _P]),
+             [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "row_fold": ("row_fold", "row_fold_launch",
+                 [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
 }
 KERNELS = tuple(_ENTRY)
 # wavepack_spmv.cu's report on the instantiation an entry point launches
@@ -64,8 +66,10 @@ _INFO = ("wavepack_spmv", "wavepack_kernel_info", [_I] * 9 + [_P])
 INFO_FIELDS = ("registers", "static_smem", "dynamic_smem", "local_bytes",
                "ctas_per_sm", "stages", "threads")
 # the wavepack kernels' semiring and value-type arguments
-# (csrc/wavepack_spmv.cu)
+# (csrc/wavepack_spmv.cu); the fold's algebra is a semiring or 3, Q8.24
+# (csrc/row_fold.cu)
 SEMIRINGS = {"plus_times": 0, "min_plus": 1, "max_times": 2}
+FOLD_ALGEBRAS = dict(SEMIRINGS, fixed=3)
 VTYPES = {"fp32": 0, "bf16": 1, "fixed": 2}
 
 _lock = threading.Lock()
@@ -75,6 +79,7 @@ gradstream_launches = 0
 spmm_launches = 0
 masked_launches = 0
 bcsr_launches = 0
+fold_launches = 0
 
 
 def _nvcc() -> str:
@@ -291,6 +296,25 @@ def launch_bcsr(blocks, brow_ptr, bcol, x, out) -> None:
     rc = load()["bcsr"](
         blocks.data_ptr(), int(blocks.dtype == torch.bfloat16),
         brow_ptr.data_ptr(), bcol.data_ptr(), x.data_ptr(), out.data_ptr(),
-        brow_ptr.shape[0] - 1, x.shape[1], _stream(blocks))
+        brow_ptr.shape[0] - 1, blocks.shape[0], x.shape[0], x.shape[1],
+        _stream(blocks))
     _check("bcsr", rc)
     bcsr_launches += 1
+
+
+def launch_row_fold(y, idx, ptr, long_rows, out, *, alg: str,
+                    thread_max: int) -> None:
+    """Launch the fold kernel on the current stream (checked by
+    ops/spmv.py:row_fold): y (n_renamed,) or (F, n_renamed), out (n_rows,)
+    or (F, n_rows), float32 or Q8.24 words in int32; idx, ptr (n_rows +
+    1,) and long_rows int32 (ops/spmv.py:fold_plan), long_rows the rows
+    of more than ``thread_max`` partials."""
+    global fold_launches
+    F = y.shape[0] if y.dim() == 2 else 1
+    rc = load()["row_fold"](
+        y.data_ptr(), idx.data_ptr(), ptr.data_ptr(), _ptr(long_rows)
+        if long_rows.numel() else None, out.data_ptr(), ptr.shape[0] - 1,
+        long_rows.shape[0], y.shape[-1], F, thread_max, FOLD_ALGEBRAS[alg],
+        _stream(y))
+    _check("row_fold", rc)
+    fold_launches += 1

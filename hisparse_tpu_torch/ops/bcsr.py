@@ -105,6 +105,9 @@ def bcsr_spmm(blocks, brow_ptr, bcol, x) -> torch.Tensor:
                              f"{tuple(shape)} {dtype} on {blocks.device}")
     if not all(t.is_contiguous() for t in (blocks, brow_ptr, bcol, x)):
         raise ValueError("bcsr_spmm operands must be contiguous")
+    if blocks.data_ptr() % 16 or x.data_ptr() % 16:
+        raise ValueError("bcsr_spmm: blocks and x must be 16-byte aligned "
+                         "(the kernel loads them in 16-byte units)")
     nbr = brow_ptr.shape[0] - 1
     out = torch.empty(nbr * BS, x.shape[1], dtype=torch.float32,
                       device=blocks.device)

@@ -16,7 +16,11 @@ Per SpMV call, for a dense vector x:
                         tensors;
   3. ``stripe_fold``    S/R sublane rows -> R rows per block (renamed y);
   4. ``unpack_device``  renamed y -> natural row order (hub-split partials
-                        combined).
+                        combined): ``row_fold``, the CUDA kernel of
+                        ``csrc/row_fold.cu`` for CUDA tensors, the plain
+                        version ``row_fold_plain`` for CPU tensors, both
+                        folding each row's partials in ascending renamed
+                        order, as ``Wavepack.unpack_y`` does.
 
 Each step follows the pack's semiring: plus_times sums products, min_plus
 takes the least v + x, max_times the greatest v * x (natural-order rows
@@ -49,8 +53,10 @@ term; x and the accumulator stay fp32.  A Q8.24 stream, its x and its
 accumulator are uint32 words carried in int32 tensors (torch has few
 uint32 ops); the plain versions widen them to int64.  Q8.24 packs run SpMV
 only: ``matmul``, ``masked`` and ``unpack_device`` raise ``ValueError``,
-as the JAX package's do, and ``forward`` recombines hub-split rows on the
-host (``Wavepack.unpack_y``).  The gradient stream is fp32 plus_times.
+as the JAX package's do, and ``forward`` recombines hub-split rows with the
+same fold, its saturating form (an int64 sum clamped at ``FIX_MAX``,
+``Wavepack.unpack_y``'s closed form), on the device until one final copy.
+The gradient stream is fp32 plus_times.
 """
 from __future__ import annotations
 
@@ -72,6 +78,9 @@ FIX_MAX = 0xFFFFFFFF          # Q8.24 saturates at the all-ones word
 # the device dtype of each stream value type
 VALUE_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16,
                 "fixed": torch.int32}
+# a natural row of up to this many partials folds on one thread of the
+# fold kernel; a longer (hub) row on one warp (csrc/row_fold.cu)
+FOLD_THREAD_MAX = 32
 
 
 def algebra(cfg: SpmvConfig) -> str:
@@ -535,7 +544,7 @@ def wavepack_gradstream(vals, idxT, mask, tile_part, tile_block, cmap,
         (mask, torch.float32, (T, S, LANES)),
         (tile_block, torch.int32, (T,)),
         (g_acc, torch.float32, (g_acc.shape[0], LANES)),
-        _xt_check(xt, cfg)], cfg)
+        _xt_check(xt, cfg)], cfg, aligned=(vals, idxT, mask, g_acc))
     out = torch.empty_like(vals)
     if T:
         _kernels.launch_wavepack_gradstream(
@@ -595,6 +604,96 @@ def stripe_fold(acc: torch.Tensor, cfg: SpmvConfig,
     if cfg.semiring == "max_times":
         return rows.amax(dim=1)
     return rows.sum(dim=1)
+
+
+def fold_plan(perm, num_rows: int):
+    """The fixed-order fold from renamed to natural rows of a pack whose
+    renamed position i holds a partial of natural row ``perm[i]`` (padding
+    positions hold ``num_rows``): the valid positions, stably sorted by
+    natural row, as ``(idx, ptr, long_rows)``, int32 arrays.  Row r's
+    partials are ``idx[ptr[r]:ptr[r+1]]``, in ascending renamed order;
+    ``long_rows`` are the rows of more than ``FOLD_THREAD_MAX`` partials,
+    which the kernel gives a warp each."""
+    perm = np.asarray(perm)
+    if perm.size >= 1 << 31:
+        raise ValueError("the fold takes fewer than 2^31 renamed rows")
+    valid = np.flatnonzero(perm < num_rows)
+    rows = perm[valid]
+    idx = valid[np.argsort(rows, kind="stable")].astype(np.int32)
+    ptr = np.zeros(num_rows + 1, np.int64)
+    np.cumsum(np.bincount(rows, minlength=num_rows), out=ptr[1:])
+    long_rows = np.flatnonzero(np.diff(ptr) > FOLD_THREAD_MAX)
+    return idx, ptr.astype(np.int32), long_rows.astype(np.int32)
+
+
+def fold_add(acc, t, alg: str):
+    """``acc (+) t`` as the fold adds a partial, the ufunc of
+    ``Wavepack.unpack_y``: ``acc + t`` (plus_times; Q8.24 in int64),
+    ``np.minimum`` or ``np.maximum``.  Those two keep a NaN from either
+    side and, on a tie, take the new partial, as numpy's do, so signed
+    zeros land where ``unpack_y`` puts them."""
+    if alg == "min_plus":
+        return torch.where((acc < t) | torch.isnan(acc), acc, t)
+    if alg == "max_times":
+        return torch.where((acc > t) | torch.isnan(acc), acc, t)
+    return acc + t
+
+
+def row_fold_plain(y, idx, ptr, alg: str) -> torch.Tensor:
+    """Plain PyTorch version of the fold kernel: ``out[..., r]`` = the
+    ``alg`` fold (:func:`fold_add`) of ``y[..., idx[j]]`` for j from
+    ``ptr[r]`` to ``ptr[r+1] - 1`` in ascending order, from the identity;
+    max_times then clamps at 0 (``np.maximum(out, 0)``, empty rows 0), a
+    Q8.24 sum (``alg == "fixed"``, int32-carried words) at ``FIX_MAX``.
+    ``y`` is (n_renamed,) or (F, n_renamed); returns (n_rows,) or (F,
+    n_rows), float32 or Q8.24 words in int32."""
+    n = ptr.shape[0] - 1
+    starts = ptr[:-1].long()
+    lengths = ptr[1:].long() - starts
+    vals = _u32(y) if alg == "fixed" else y
+    acc = torch.full(y.shape[:-1] + (n,), IDENTITY[alg], dtype=vals.dtype,
+                     device=y.device)
+    idx = idx.long()
+    # rows by falling length: the rows still folding at step k are a prefix
+    order = torch.argsort(lengths, descending=True, stable=True)
+    hist = np.bincount(lengths.cpu().numpy(), minlength=1)
+    longer = n - np.cumsum(hist)           # rows of more than k partials
+    for k in range(hist.size - 1):
+        live = order[:int(longer[k])]
+        acc[..., live] = fold_add(acc[..., live],
+                                  vals[..., idx[starts[live] + k]], alg)
+    if alg == "fixed":
+        return _to_words(torch.clamp_max(acc, FIX_MAX))
+    if alg == "max_times":
+        acc = torch.where((acc > 0) | torch.isnan(acc), acc,
+                          torch.zeros_like(acc))
+    return acc
+
+
+def row_fold(y, idx, ptr, long_rows, alg: str) -> torch.Tensor:
+    """Renamed -> natural rows: the fold of :func:`row_fold_plain`, the
+    same bits, with ``(idx, ptr, long_rows)`` from :func:`fold_plan`.
+
+    On CUDA tensors this launches ``csrc/row_fold.cu``; on CPU tensors it
+    runs :func:`row_fold_plain`.  The kernel trusts the plan to index y;
+    this wrapper checks device, dtype, shape and contiguity."""
+    if _device_of("row_fold", y) == "cpu":
+        return row_fold_plain(y, idx, ptr, alg)
+    dtype = torch.int32 if alg == "fixed" else torch.float32
+    if y.dim() not in (1, 2) or y.dtype != dtype or not y.is_contiguous():
+        raise ValueError(f"row_fold: y must be a contiguous (n,) or (F, n) "
+                         f"{dtype} tensor, got {tuple(y.shape)} {y.dtype}")
+    for t in (idx, ptr, long_rows):
+        if (t.device != y.device or t.dtype != torch.int32 or t.dim() != 1
+                or not t.is_contiguous()):
+            raise ValueError("row_fold: idx, ptr and long_rows must be "
+                             "contiguous 1-D int32 tensors on y's device")
+    n = ptr.shape[0] - 1
+    out = torch.empty(y.shape[:-1] + (n,), dtype=dtype, device=y.device)
+    if out.numel():
+        _kernels.launch_row_fold(y, idx, ptr, long_rows, out, alg=alg,
+                                 thread_max=FOLD_THREAD_MAX)
+    return out
 
 
 class SpmvOperator(torch.nn.Module):
@@ -658,6 +757,11 @@ class SpmvOperator(torch.nn.Module):
         self.register_buffer("run_start", buf(start))
         self.register_buffer("run_end", buf(end))
         self.register_buffer("perm", buf(wp.perm, np.int64))
+        # the fixed-order renamed -> natural fold (unpack_device)
+        fold_idx, fold_ptr, fold_long = fold_plan(wp.perm, wp.num_rows)
+        self.register_buffer("fold_idx", buf(fold_idx))
+        self.register_buffer("fold_ptr", buf(fold_ptr))
+        self.register_buffer("fold_long", buf(fold_long))
         permute = permute_x and wp.col_order is not None
         self.register_buffer(
             "col_order", buf(wp.col_order, np.int64) if permute else None)
@@ -681,32 +785,29 @@ class SpmvOperator(torch.nn.Module):
         return stripe_fold(acc, self.cfg, self.wp.n_blocks).reshape(-1)
 
     def unpack_device(self, y_renamed: torch.Tensor) -> torch.Tensor:
-        """Renamed -> natural-row-order y on the device: one scatter over
-        the stored perm combines hub-split partials with the semiring's
-        addition (padding rows map to ``num_rows`` and are dropped):
-        ``index_add_`` for plus_times, ``scatter_reduce_`` with amin or amax
-        over an identity-filled output for min_plus and max_times.  On CUDA
-        the partials of one row add in no fixed order.  max_times rows
+        """Renamed -> natural-row-order y on the device: each row's
+        hub-split partials fold in ascending renamed order from the
+        semiring's identity (:func:`row_fold`), so the result has the
+        same bits every run and on every device, those of
+        ``Wavepack.unpack_y``; padding rows are dropped.  max_times rows
         with no term come out at 0, not -inf (``max(out, 0)``, the JAX
-        package's clamp).  A (F, renamed) input gives (F, num_rows).  Q8.24
-        packs raise ``ValueError``: their recombine saturates
-        (``Wavepack.unpack_y`` on the host)."""
+        package's clamp).  A (F, renamed) input gives (F, num_rows).
+        Q8.24 packs raise ``ValueError``, as the JAX package's
+        ``unpack_device`` does; their ``forward`` folds with
+        :meth:`fold`."""
         if self.cfg.dtype == "fixed":
             raise ValueError("fixed-point recombine saturates; use "
                              "wp.unpack_y on host")
-        n = self.wp.num_rows
-        sr = self.cfg.semiring
-        out = torch.full(y_renamed.shape[:-1] + (n + 1,), IDENTITY[sr],
-                         dtype=y_renamed.dtype, device=y_renamed.device)
-        if sr == "plus_times":
-            out.index_add_(-1, self.perm, y_renamed)
-        else:
-            out.scatter_reduce_(-1, self.perm.expand_as(y_renamed),
-                                y_renamed,
-                                "amin" if sr == "min_plus" else "amax")
-            if sr == "max_times":
-                out = out.clamp_min(0.0)
-        return out[..., :n]
+        return self.fold(y_renamed)
+
+    def fold(self, y_renamed: torch.Tensor) -> torch.Tensor:
+        """The fold of :meth:`unpack_device` in the pack's algebra, Q8.24
+        (int32-carried words, a sum clamped at ``FIX_MAX``) included."""
+        if y_renamed.shape[-1] != self.perm.shape[0]:
+            raise ValueError(f"y has {y_renamed.shape[-1]} renamed rows, "
+                             f"the pack {self.perm.shape[0]}")
+        return row_fold(y_renamed.contiguous(), self.fold_idx, self.fold_ptr,
+                        self.fold_long, algebra(self.cfg))
 
     def _x(self, x) -> torch.Tensor:
         if self.cfg.dtype == "fixed":
@@ -720,15 +821,15 @@ class SpmvOperator(torch.nn.Module):
     def forward(self, x, renamed: bool = False, vals=None) -> torch.Tensor:
         """y = A x; ``vals`` (a stream of the pack's shape) replaces the
         stored values for this call, as the training paths do.  A Q8.24
-        pack ends in the host recombine ``Wavepack.unpack_y``, as the JAX
-        operator's ``_run`` does."""
+        pack folds its words on the device (the saturating sum of
+        ``Wavepack.unpack_y``, the JAX operator's host recombine) and
+        returns them in one copy, as a uint32 CPU tensor."""
         acc = wavepack_spmv(*self.stream_args(self._x(x), vals), self.cfg)
         y = self.renamed_y(acc)
         if self.cfg.dtype == "fixed":
             if renamed:
                 return y.view(torch.uint32)
-            return torch.from_numpy(self.wp.unpack_y(
-                y.cpu().numpy().view(np.uint32)))
+            return self.fold(y).cpu().view(torch.uint32)
         return y if renamed else self.unpack_device(y)
 
     def active_tiles(self, active) -> np.ndarray:

@@ -20,7 +20,10 @@ streams widen each value exactly and round each operation once, and
 Q8.24 is integer arithmetic, so both are held bit for bit too.  The BCSR
 kernel sums each output in another order than ``torch.bmm``: fp32 blocks
 within 1e-5 of max|Y|, bf16 blocks on the tensor cores (whose fp32
-accumulation is not IEEE-ordered) within 1e-4.
+accumulation is not IEEE-ordered) within 1e-4.  The renamed -> natural
+fold adds each row's partials in one fixed order, so natural-order y is
+held bit for bit: against the plain fold, against ``Wavepack.unpack_y``
+and between two runs.
 """
 import itertools
 
@@ -350,8 +353,8 @@ def _semiring_cases():
 @pytest.mark.parametrize("fam", _semiring_cases(), ids=lambda f: f[0])
 def test_masked_kernel_matches_plain_and_full(fam, cuda_device):
     """The masked kernel bit for bit against its plain version, with 40
-    active columns, and masked == full (natural order; renamed for
-    plus_times); the masked counter rises by one per launch."""
+    active columns, and masked == full in natural order; the masked
+    counter rises by one per launch."""
     from hisparse_tpu_torch import pack, powerlaw_csr
     from hisparse_tpu_torch.config import SpmvConfig
     from hisparse_tpu_torch.utils.bench import family_inputs
@@ -368,10 +371,8 @@ def test_masked_kernel_matches_plain_and_full(fam, cuda_device):
     torch.cuda.synchronize()
     assert _kernels.masked_launches == before + 1
     _exact(acc, spmv_masked_tiles_plain(*margs))
-    # plus_times in renamed order: on CUDA index_add_ adds a split row's
-    # partials in no fixed order
-    renamed = kw["semiring"] == "plus_times"
-    _exact(op.masked(x_dev, act, renamed=renamed), op(x_dev, renamed=renamed))
+    # natural order: the fold adds a split row's partials in one order
+    _exact(op.masked(x_dev, act), op(x_dev))
 
 
 @pytest.mark.cuda
@@ -489,11 +490,12 @@ def test_value_types_on_arbitrary_words(dtype, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 5, 64, 72])
+@pytest.mark.parametrize("k", [1, 5, 16, 64, 72, 128])
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 def test_bcsr_kernel_matches_plain_on_cuda(dtype, k, cuda_device):
     """The BCSR kernel against its plain version on a block-structured
-    matrix with empty block rows, each launch counted once; the
+    matrix with empty block rows, each launch counted once, at kp = 8
+    (k = 1 and 5), 16, 64, 72 (a ragged last column chunk) and 128; the
     operator's Y against a float64 product of the operands it rounds."""
     from hisparse_tpu_torch import (BcsrOperator, CSRMatrix,
                                     block_structured_csr)
@@ -664,3 +666,198 @@ def test_misaligned_operands_raise(cuda_device):
     with pytest.raises(ValueError, match="16-byte"):
         wavepack_spmm(op.vals, op.idxT, op.tile_part, op.class_map,
                       op.run_start, op.run_end, xt, op.cfg)
+
+
+# the fold's cases: a power-law matrix whose hub rows split into up to 113
+# partials (more than FOLD_THREAD_MAX: warp-folded rows), in each algebra
+FOLD_ALGEBRAS = ("plus_times", "min_plus", "max_times", "fixed")
+
+
+def _fold_op(alg, dev):
+    from hisparse_tpu_torch import SpmvConfig, pack, powerlaw_csr
+    from hisparse_tpu_torch.ops.golden import float_to_fixed
+    import dataclasses
+    kw = dict(sublanes=128, bank_blocks=1, stripes=128, two_choice=False)
+    kw.update(dtype="fixed" if alg == "fixed" else "fp32",
+              semiring="plus_times" if alg == "fixed" else alg)
+    m = powerlaw_csr(700, 900, 8, alpha=1.1, seed=9)
+    if alg == "fixed":
+        m = dataclasses.replace(m, data=float_to_fixed(np.abs(m.data) / 8))
+    wp = pack(m, SpmvConfig(**kw), split_max=8)
+    op = SpmvOperator(wp, device=dev)
+    assert op.fold_long.numel() > 0
+    return m, wp, op
+
+
+def _words(t):
+    """A float32 or int32 tensor's words as numpy uint32, NaNs as one."""
+    a = t.detach().cpu()
+    if a.dtype == torch.float32:
+        a = torch.where(torch.isnan(a), torch.full_like(a, float("nan")), a)
+    return a.contiguous().view(torch.int32).numpy().view(np.uint32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alg", FOLD_ALGEBRAS)
+def test_row_fold_matches_plain_on_cuda(alg, cuda_device):
+    """The fold kernel bit for bit against its plain version and
+    ``Wavepack.unpack_y``, on (renamed,) and (F, renamed) inputs with
+    +inf, -inf, signed zeros, NaNs and saturating Q8.24 words; twice, the
+    same bits; each launch counted once."""
+    from hisparse_tpu_torch.ops.spmv import row_fold, row_fold_plain
+    m, wp, op = _fold_op(alg, cuda_device)
+    rng = np.random.default_rng(3)
+    n = wp.perm.size
+    if alg == "fixed":
+        Y = rng.integers(0, 1 << 32, (3, n), dtype=np.uint64).astype(
+            np.uint32)
+        Yt = torch.from_numpy(Y.view(np.int32)).to(cuda_device)
+    else:
+        Y = rng.standard_normal((3, n)).astype(np.float32)
+        pick = rng.random((3, n))
+        Y[pick < 0.1] = np.inf if alg == "min_plus" else -np.inf
+        Y[(pick >= 0.1) & (pick < 0.2)] = -0.0
+        Y[(pick >= 0.2) & (pick < 0.3)] = 0.0
+        Y[:, n // 2] = np.nan
+        Yt = torch.from_numpy(Y).to(cuda_device)
+    plan = (op.fold_idx, op.fold_ptr, op.fold_long)
+    for y in (Yt[0], Yt):
+        before = _kernels.fold_launches
+        out = row_fold(y.contiguous(), *plan, alg)
+        again = row_fold(y.contiguous(), *plan, alg)
+        torch.cuda.synchronize()
+        assert _kernels.fold_launches == before + 2
+        plain = row_fold_plain(y, op.fold_idx, op.fold_ptr, alg)
+        np.testing.assert_array_equal(_words(out), _words(plain))
+        np.testing.assert_array_equal(_words(out), _words(again))
+    for f in range(3):
+        np.testing.assert_array_equal(_words(out[f]),
+                                      _words(torch.from_numpy(
+                                          wp.unpack_y(Y[f]).view(
+                                              np.int32 if alg == "fixed"
+                                              else np.float32))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alg", FOLD_ALGEBRAS)
+def test_natural_order_is_fixed_on_cuda(alg, cuda_device):
+    """Natural-order y of ``forward`` (and for the float algebras of
+    ``masked`` and ``matmul``) is bit-equal between two runs and to
+    ``Wavepack.unpack_y`` of the same call's renamed y, on a hub-split
+    pack; the fold kernel runs on each natural-order call."""
+    from hisparse_tpu_torch.ops.golden import float_to_fixed
+    m, wp, op = _fold_op(alg, cuda_device)
+    rng = np.random.default_rng(4)
+    x = rng.random(wp.num_cols).astype(np.float32)
+    if alg == "fixed":
+        x = float_to_fixed(x)
+        y1, y2 = op(x), op(x)
+        ren = op(x, renamed=True).view(torch.int32).cpu().numpy().view(
+            np.uint32)
+        assert y1.dtype == torch.uint32 and y1.device.type == "cpu"
+        np.testing.assert_array_equal(y1.numpy(), y2.numpy())
+        np.testing.assert_array_equal(y1.numpy(), wp.unpack_y(ren))
+        return
+    x_dev = torch.from_numpy(x).to(cuda_device)
+    active = np.flatnonzero(rng.random(wp.num_cols) < 0.3)
+    xs = x_dev.clone() if alg != "min_plus" else torch.full_like(
+        x_dev, float("inf"))
+    if alg != "min_plus":
+        xs.zero_()
+    xs[torch.from_numpy(active).to(cuda_device)] = x_dev[
+        torch.from_numpy(active).to(cuda_device)]
+    X = torch.from_numpy(rng.random((wp.num_cols, 5)).astype(
+        np.float32)).to(cuda_device)
+    before = _kernels.fold_launches
+    for call in (lambda r: op(x_dev, renamed=r),
+                 lambda r: op.masked(xs, active, renamed=r)):
+        a, b = call(False), call(False)
+        _exact(a, b)
+        ref = wp.unpack_y(call(True).cpu().numpy())
+        np.testing.assert_array_equal(_words(a), _words(torch.from_numpy(
+            ref)))
+    Y1, Y2 = op.matmul(X), op.matmul(X)
+    _exact(Y1, Y2)
+    Y_ren = op.matmul(X, renamed=True).cpu().numpy()
+    for f in range(5):
+        np.testing.assert_array_equal(
+            _words(Y1[:, f]), _words(torch.from_numpy(wp.unpack_y(Y_ren[f]))))
+    assert _kernels.fold_launches == before + 6
+
+
+@pytest.mark.cuda
+def test_row_fold_rejects_bad_operands(cuda_device):
+    """The fold wrapper checks dtype, shape and device before it
+    launches."""
+    from hisparse_tpu_torch.ops.spmv import row_fold
+    _, wp, op = _fold_op("plus_times", cuda_device)
+    y = torch.zeros(wp.perm.size, device=cuda_device)
+    plan = (op.fold_idx, op.fold_ptr, op.fold_long)
+    before = _kernels.fold_launches
+    for bad in (y.double(), y.to(torch.int32), y[None, None]):
+        with pytest.raises(ValueError):
+            row_fold(bad, *plan, "plus_times")
+    with pytest.raises(ValueError):
+        row_fold(y, op.fold_idx.long(), *plan[1:], "plus_times")
+    assert _kernels.fold_launches == before
+
+
+# packs of one bank block (CT == 1), as both transformer-70 training packs
+ONE_BLOCK_CASES = {
+    "b1-chain": dict(bank_blocks=1, two_choice=False),
+    "b1-steal": dict(bank_blocks=1, two_choice=False, steal_mantissa=True),
+    "b1-steal-idx16": dict(bank_blocks=1, two_choice=False,
+                           steal_mantissa=True, idx16=True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FUZZ_CASES) + list(ONE_BLOCK_CASES))
+@pytest.mark.parametrize("S", [128, 512])
+def test_gradstream_pack_kinds_bit_equal(case, S, cuda_device):
+    """The gradient-stream kernel bit for bit against its plain version on
+    every kind of pack route.cuh dispatches (idx16 or int32, steal or
+    not, block-major or select-chain) and on packs of one bank block, at
+    S = 128 and at S = 512 (the transformer-70 packs' sublanes), over
+    three row blocks (one empty) and over 7 tiles, their tiles in two
+    column partitions; a zero mask zeroes its slots."""
+    from hisparse_tpu_torch import SpmvConfig
+    kw = FUZZ_CASES[case] if case in FUZZ_CASES else ONE_BLOCK_CASES[case]
+    cfg = SpmvConfig(sublanes=S, stripes=128, **kw)
+    for runs in ((2, 0, 4), (7,)):
+        (v, idx, part, cmap, start, end, block), rng, dev = fuzz_stream(
+            cfg, cuda_device, runs=runs)
+        xt = dev(rng.standard_normal((2, cfg.total_blocks, 128, 128)),
+                 np.float32)
+        mask = dev(rng.random(v.shape) < 0.7, np.float32)
+        g_acc = dev(rng.standard_normal((len(runs) * S, 128)), np.float32)
+        args = (v, idx, mask, part, block, cmap, g_acc, xt, cfg)
+        out = wavepack_gradstream(*args)
+        _exact(out, gradstream_tiles_plain(*args))
+        assert (out[mask == 0] == 0).all()
+
+
+@pytest.mark.cuda
+def test_gradstream_on_the_training_packs(cuda_device):
+    """The gradient stream bit for bit on both transformer-70-shaped packs
+    (a narrow uniform matrix, steal + idx16, S = 512, stripes 4 for A and
+    512 for A^T, as chip_smoke.py's training phase), through
+    ``grad_stream_operands``, the operands the backward builds."""
+    from hisparse_tpu_torch import (SpmvConfig, StreamDiffSpmv,
+                                    uniform_sparse_csr)
+    from hisparse_tpu_torch.ops.train_stream import grad_stream_operands
+    cfg = dict(sublanes=512, bank_blocks=1, stripes=4, steal_mantissa=True,
+               idx16=True, two_choice=False)
+    m = uniform_sparse_csr(256, 6000, 1500, seed=70)
+    sd = StreamDiffSpmv(m, SpmvConfig(**cfg),
+                        SpmvConfig(**dict(cfg, stripes=512)),
+                        device=cuda_device, split_max=None)
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.standard_normal(sd.num_cols).astype(
+        np.float32)).to(cuda_device)
+    g = torch.from_numpy(rng.standard_normal(sd.num_rows).astype(
+        np.float32)).to(cuda_device)
+    for ops in ((sd.d.op, sd.vA.detach(), sd.maskA, g, x),
+                (sd.d.opT, sd.vT.detach(), sd.maskT, x, g)):
+        gargs = grad_stream_operands(*ops)
+        _exact(wavepack_gradstream(*gargs), gradstream_tiles_plain(*gargs))

@@ -20,7 +20,9 @@ import torch
 import hisparse_tpu as ht
 import hisparse_tpu_torch as hp
 from hisparse_tpu_torch.models import dse, perf_model
-from hisparse_tpu_torch.ops.dense import (block_count, format_times,
+from hisparse_tpu_torch.ops import dense
+from hisparse_tpu_torch.ops.dense import (block_count, block_count_exact,
+                                          block_count_sampled, format_times,
                                           wavepack_time_per_nnz)
 
 TOL = 1e-6
@@ -77,8 +79,11 @@ def test_block_count_exact_matches_reference():
 
 
 def test_block_count_sampled_matches_reference():
-    """Above sample_nnz: the JAX choose_format's sampled count
-    (hisparse_tpu/ops/dense.py:158-165, the arithmetic inline there)."""
+    """The sampled helper is the JAX choose_format's count
+    (hisparse_tpu/ops/dense.py:158-165, the arithmetic inline there).
+    ``block_count`` no longer takes it for this matrix: its 16 x 24 block
+    grid fits the exact bitmap, so the helper is called directly, with
+    a sample small enough for its sampled branch."""
     m = hp.uniform_sparse_csr(2000, 3000, 10, seed=8)
     m_r = ht.uniform_sparse_csr(2000, 3000, 10, seed=8)
     sample = 1000
@@ -87,7 +92,33 @@ def test_block_count_sampled_matches_reference():
     rows = np.searchsorted(m_r.indptr, take, side="right") - 1
     key = (rows // 128).astype(np.int64) * nbc + m_r.indices[take] // 128
     nb_ref = int(np.unique(key).size * max(1.0, m_r.nnz / sample) ** 0.5)
-    assert block_count(m, sample) == nb_ref
+    assert block_count_sampled(m, sample) == nb_ref
+    assert block_count_sampled(m) == block_count(m)     # exact below
+
+
+@pytest.mark.parametrize("chunk", [1 << 22, 1000])
+def test_block_count_exact_above_the_sample(chunk):
+    """Where the block grid fits the bitmap, the count is exact however
+    many nonzeros the matrix has beyond the sample: the blocks the JAX
+    package's pack_bcsr densifies, also when the bitmap is marked in
+    chunks smaller than a block row."""
+    from hisparse_tpu.ops.bcsr import pack_bcsr as ht_pack_bcsr
+    m = hp.block_structured_csr(2048, 1536, block_rows=3, seed=2)
+    m_r = ht.block_structured_csr(2048, 1536, block_rows=3, seed=2)
+    nb_ref = np.asarray(ht_pack_bcsr(m_r)[1]).size
+    assert block_count_exact(m, chunk) == nb_ref
+    assert block_count(m, sample_nnz=1000) == nb_ref
+    assert block_count_sampled(m, 1000) > nb_ref       # the estimate's bias
+
+
+def test_block_count_above_the_bitmap(monkeypatch):
+    """A block grid of more than BLOCK_BITMAP_CELLS cells takes the
+    sampled estimate."""
+    m = hp.uniform_sparse_csr(2000, 3000, 10, seed=8)
+    monkeypatch.setattr(dense, "BLOCK_BITMAP_CELLS", 16 * 24 - 1)
+    assert block_count(m, 1000) == block_count_sampled(m, 1000)
+    monkeypatch.setattr(dense, "BLOCK_BITMAP_CELLS", 16 * 24)
+    assert block_count(m, 1000) == block_count_exact(m)
 
 
 @pytest.mark.parametrize("case", ["rows", "nnz-cap", "whole"])
@@ -244,3 +275,18 @@ def test_choose_format_block_structured():
     assert t["bcsr"] == (2.0 * 128 * 128 * block_count(m) / m.nnz
                          / perf_model.card_rates()["bcsr_bf16_gbps"])
     assert hp.choose_format(m) == min(t, key=t.get)
+
+
+def test_choose_format_counts_blocks_exactly():
+    """A block-structured matrix that the sampled block count sent to the
+    dense arm goes to BCSR: with 30,000 sampled nonzeros the JAX estimate
+    scales 64 blocks to 291, which costs BCSR more than dense; the exact
+    count keeps it the cheapest arm, as bcsr-spmm-16k on the card."""
+    m = hp.block_structured_csr(2048, 2048, block_rows=4, seed=7)
+    rate = perf_model.card_rates()["bcsr_bf16_gbps"]
+    t = format_times(m, sample_nnz=30_000)
+    t_sampled = (2.0 * 128 * 128 * block_count_sampled(m, 30_000) / m.nnz
+                 / rate)
+    assert block_count(m, 30_000) == 64
+    assert t_sampled > t["dense"] > t["bcsr"]
+    assert hp.choose_format(m, sample_nnz=30_000) == "bcsr"

@@ -6,8 +6,8 @@ package selects groups of ``tb`` tiles; a skipped tile holds only columns
 where x is the semiring's annihilator, so its terms are exact identities
 and natural-order results agree.  Tolerances:
 
-  * masked == full within the port, bit for bit, natural order (on the
-    CPU ``index_add_`` adds a split row's partials in a fixed order);
+  * masked == full within the port, bit for bit, natural order (the
+    fold adds a split row's partials in one fixed order);
   * against the JAX ``masked`` in natural order: min_plus and max_times
     bit for bit (one rounding per term, exact min and max), plus_times
     within 1e-6, max|dy| / max(max|y|, 1) (the order of fp32 sums).
