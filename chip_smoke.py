@@ -117,10 +117,31 @@ Phases, in order; any failure raises and exits non-zero:
      kernel beside its bound, in GOPS, and its forward (the device fold,
      one copy to the host); each dense pick's forward beside its bound and
      the wavepack forward of the same matrix.
+ 10. the mesh on one card (``hisparse_tpu_torch.parallel``), four shards
+     on ``cuda:0``: ShardedSpmv on googleplus at its design point (split_max 64, no
+     column order) within 1e-4 of spmv_f64 and bit-equal run to run,
+     ShardedSpmv2D (2 x 2) and ShardedSpmvMultiHost (2 x 2) within 1e-4
+     of it; the fixed row through ShardedSpmv bit for bit equal to
+     golden.spmv_fixed_vec (each shard's words folded on the card);
+     min_plus on the 100k graph through
+     ShardedSpmv and ShardedSpmv2D bit-equal to the single-device
+     operator; ShardedStreamDiffSpmv on transformer-70, 5 SGD steps, the
+     loss falling, the layouts bit-equal after each step, step 1's y and
+     x_bar within 1e-4 of float64; ShardedDiffSpmv (the same packs, its
+     own values) y and x_bar within 1e-4 of float64 and dL/dvals
+     bit-equal to g[rows] * x[cols]; ShardedGCN on googleplus with phase
+     7's parameters, logits within 1e-5 of the single-device GCN, 3 SGD
+     steps lowering the loss; ShardedPageRank within 1e-5 of
+     pagerank_reference, ShardedBFS and ShardedSSSP equal to phase 8's
+     levels and distances; the SpMV, SpMM, gradient-stream
+     and fold counters, zeroed before, above 0; one shard of each of
+     those kernels against its plain version; each shard's tiles; the
+     sharded forwards and steps timed beside one
+     operator's on the same matrices, and two of them profiled.
 
-The kernels' times keep the host's enqueue out
-(``device_time_ms(queued=True)``); the forwards, steps and plain versions
-are timed with it, as their callers wait for it.  A profile
+Each phase prints its seconds.  The kernels' times keep the host's
+enqueue out (``device_time_ms(queued=True)``); the forwards, steps and
+plain versions are timed with it, as their callers wait for it.  A profile
 (``utils/bench.profile_breakdown``) prints a call's device time by op and
 its device idle share.  The line before the last is a JSON object with
 the six kernels' records: launches by path, each time beside its bound
@@ -136,6 +157,7 @@ launches (registers, shared memory, CTAs per SM); the last is
 ``{"ok": true, "device": {...}}``.
 """
 import json
+import resource
 import subprocess
 import sys
 import time
@@ -173,6 +195,12 @@ BCSR_RHS = 64
 TOL_PLAIN = 1e-6
 TOL_F64 = 1e-4
 TOL_BF16 = 8e-3               # one bf16 rounding a term (test_formats.py:433)
+# phase 10: four shards on one card; the sharded GCN and PageRank against
+# the single-device GCN and the golden (the sums of a shard run in another
+# order than the whole matrix's)
+MESH_SHARDS = 4
+TOL_MESH_GCN = 1e-5
+TOL_MESH_PR = 1e-5
 # the card's peaks for bound_ms (NVIDIA data sheet, H100 SXM at 700 W): HBM3
 # bytes, fp32 operations outside the tensor cores and bf16 operations on
 # them, a second
@@ -320,9 +348,11 @@ def masked_bound(margs, out) -> dict:
 
 def csr_tensor(m, dev):
     """A torch CSR tensor of a CSRMatrix (duplicates summed), for the
-    cuSPARSE yardsticks."""
+    cuSPARSE yardsticks.  ``to_scipy`` shares m's arrays and
+    ``sum_duplicates`` sorts and compacts in place, so it runs on a copy:
+    m stays as it was for the phases after."""
     import torch
-    a = m.to_scipy()
+    a = m.to_scipy().copy()
     a.sum_duplicates()
     return torch.sparse_csr_tensor(
         torch.from_numpy(a.indptr.astype(np.int32)),
@@ -1008,7 +1038,8 @@ def phase_training(dev, kernels):
 
 def phase_gcn(dev, kernels, m):
     """Phase 7: the GCN on googleplus; returns the SpMM record, the fold's
-    record at F = 16 and the launches of the path."""
+    record at F = 16, the launches of the path and (the GCN, its features,
+    its labels) for phase 10."""
     import torch
     from hisparse_tpu_torch import GCN, SpmvConfig
     from hisparse_tpu_torch.ops.spmv import (build_xt_multi,
@@ -1126,7 +1157,7 @@ def phase_gcn(dev, kernels, m):
             "step_idle_share": prof["idle_share"],
             "instantiation": instantiation(kernels, "wavepack_spmm",
                                            gcn.agg.op, Fp=16)}, \
-        rec_fold, launches
+        rec_fold, launches, (gcn, X, labels)
 
 
 def levels_reference(m, source: int) -> np.ndarray:
@@ -1179,7 +1210,8 @@ def compare_at(what, op, x_packed, active):
 def phase_apps(dev, kernels):
     """Phase 8: PageRank and BFS on the 100k power-law graph and SSSP on
     the pokec stand-in through the port's apps; returns the records of the
-    SpMV and masked kernels and the launches of the path."""
+    SpMV and masked kernels, the launches of the path and, for phase 10,
+    the two graphs, BFS's levels and SSSP's distances."""
     import torch
     from hisparse_tpu_torch import (BFS, SSSP, PageRank,
                                     normalize_by_outdegree,
@@ -1424,7 +1456,8 @@ def phase_apps(dev, kernels):
                   "sssp_masked_step_ms": ms_ssm,
                   "sssp_tiles_per_iteration": sssp_tiles,
                   "bfs_tiles_per_iteration": bfs_tiles}
-    return rec_spmv, rec_masked, rec_spmm_paged, launches
+    return rec_spmv, rec_masked, rec_spmm_paged, launches, {
+        "graph": g, "pokec": m, "bfs_levels": lv_d, "sssp_dist": d_d}
 
 
 def f64_bcsr(op, X):
@@ -1455,8 +1488,8 @@ def max_rel(a, b) -> float:
 
 def phase_dispatch(dev, kernels, m_gplus):
     """Phase 9: the format dispatch at the suite's sizes; returns the BCSR
-    kernel's record, the dispatch rows' record and the launches of the
-    path."""
+    kernel's record, the dispatch rows' record, the launches of the path
+    and the fixed row's matrix and x for phase 10."""
     import dataclasses
     import torch
     from hisparse_tpu_torch import (BcsrOperator, DenseOperator, SpmmOperator,
@@ -1689,7 +1722,325 @@ def phase_dispatch(dev, kernels, m_gplus):
                 "fixed_row_bound_ms": b_f["bound_ms"],
                 "fixed_row_gops": gops(m_f.nnz, ms_fk), "dense": rows,
                 "fixed_row_natural_order_comparisons": n_nat}
-    return rec_bcsr, rec_rows, launches
+    return rec_bcsr, rec_rows, launches, (m_f, x_f)
+
+
+def phase_mesh(dev, kernels, m_gplus, gcn_ctx, apps, fixed):
+    """Phase 10: the mesh on one card, four shards on ``dev``, through
+    ``hisparse_tpu_torch.parallel``; returns the launches of the path and
+    the phase's record."""
+    import dataclasses
+
+    import torch
+    from hisparse_tpu_torch import (SpmvConfig, SpmvOperator, StreamDiffSpmv,
+                                    pack, pagerank_reference,
+                                    uniform_sparse_csr)
+    from hisparse_tpu_torch.ops.golden import spmv_f64, spmv_fixed_vec
+    from hisparse_tpu_torch.ops.spmv import (
+        build_xt_multi, gradstream_tiles_plain, row_fold, row_fold_plain,
+        spmm_tiles_plain, spmv_tiles_plain, wavepack_gradstream,
+        wavepack_spmm, wavepack_spmv)
+    from hisparse_tpu_torch.ops.train_stream import grad_stream_operands
+    from hisparse_tpu_torch.parallel import (
+        Mesh, ShardedBFS, ShardedGCN, ShardedPageRank, ShardedSpmv,
+        ShardedSpmv2D, ShardedSpmvMultiHost, ShardedSSSP,
+        ShardedStreamDiffSpmv)
+    from hisparse_tpu_torch.utils.bench import (device_time_ms,
+                                               profile_breakdown)
+    gcn, X_gcn, labels = gcn_ctx
+    g, pokec = apps["graph"], apps["pokec"]
+    m_f, x_f = fixed
+    mesh = Mesh([dev] * MESH_SHARDS, ("rows",))
+    mesh2 = Mesh(np.array([dev] * 4).reshape(2, 2), ("rows", "cols"))
+    mesh_mh = Mesh(np.array([dev] * 4).reshape(2, 2), ("hosts", "chips"))
+    cfg_g = SpmvConfig(**GOOGLEPLUS_CFG)
+    split_g = GOOGLEPLUS_PACK["split_max"]
+
+    # the modules of the path
+    t0 = time.perf_counter()
+    sp1 = ShardedSpmv(m_gplus, mesh, cfg_g, split_max=split_g)
+    sp2 = ShardedSpmv2D(m_gplus, mesh2, cfg_g, split_max=split_g)
+    spm = ShardedSpmvMultiHost(m_gplus, mesh_mh, cfg_g, split_max=split_g)
+    t1 = time.perf_counter()
+    spf = ShardedSpmv(m_f, mesh, SpmvConfig(**FIXED_CFG),
+                      split_max=FIXED_PACK["split_max"])
+    cfg_t = dataclasses.replace(SpmvConfig(), semiring="min_plus")
+    trop1 = ShardedSpmv(g, mesh, cfg_t, split_max=16)
+    trop2 = ShardedSpmv2D(g, mesh2, cfg_t, split_max=16)
+    op_t = SpmvOperator(pack(g, cfg_t, split_max=16), dev)
+    m70 = uniform_sparse_csr(*T70["shape"], seed=T70["seed"])
+    sds = ShardedStreamDiffSpmv(m70, mesh, SpmvConfig(**T70_CFG),
+                                SpmvConfig(**T70_CFG_T), split_max=None)
+    t2 = time.perf_counter()
+    sg = ShardedGCN(m_gplus, mesh, GCN_DIMS, cfg_g, split_max=split_g)
+    sg.load_params(gcn.params())
+    t3 = time.perf_counter()
+    spr = ShardedPageRank(g, mesh)
+    sbf = ShardedBFS(g, mesh)
+    t4 = time.perf_counter()
+    sss = ShardedSSSP(pokec, mesh)
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    print(f"mesh build: googleplus 1-D, 2x2 and hosts x chips "
+          f"{t1 - t0:.1f} s; fixed row, min_plus 100k, transformer-70 "
+          f"{t2 - t1:.1f} s; GCN {t3 - t2:.1f} s; PageRank + BFS "
+          f"{t4 - t3:.1f} s; SSSP pokec {t5 - t4:.1f} s; host peak "
+          f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.1f} "
+          f"GiB, card {torch.cuda.memory_allocated() / 2**30:.1f} GiB "
+          "allocated", flush=True)
+    packs = {"googleplus 1-D": sp1.shards,
+             "googleplus 2x2": [w for row in sp2.grid for w in row],
+             "fixed row": spf.shards, "min_plus 1-D": trop1.shards,
+             "transformer-70 A": sds.d.packsA,
+             "transformer-70 A^T": sds.d.packsT,
+             "gcn A-hat": sg.agg.packsA, "gcn A-hat^T": sg.agg.packsT,
+             "pagerank": spr.st.packs, "bfs": sbf.st.packs,
+             "sssp pokec": sss.st.packs}
+    tiles = {what: [w.num_tiles for w in ws] for what, ws in packs.items()}
+    del packs
+    for what, t in tiles.items():
+        print(f"mesh tiles {what}: the shards run {t}", flush=True)
+
+    rng = np.random.default_rng(31)
+    x_g = torch.from_numpy(rng.random(m_gplus.num_cols).astype(
+        np.float32)).to(dev)
+    x_t = torch.from_numpy(rng.random(g.num_cols).astype(np.float32)).to(dev)
+    x70 = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        sds.num_cols).astype(np.float32)).to(dev)
+    yt70 = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        sds.num_rows).astype(np.float32)).to(dev)
+    vals0 = sds.values()
+    with torch.no_grad():
+        logits_one = gcn(X_gcn)
+    torch.cuda.synchronize()
+
+    # the main path, counted
+    reset_counts(kernels)
+    w0 = time.perf_counter()
+    y1 = sp1.unpack_y(sp1(x_g))
+    y2 = sp2.unpack_y(sp2(x_g))
+    ymh = spm.unpack_y(spm(x_g))
+    yf = spf.unpack_y(spf(x_f))
+    yt1, yt2 = trop1.unpack_y(trop1(x_t)), trop2.unpack_y(trop2(x_t))
+    losses, layouts_equal = [], []
+    for step in range(T70_STEPS):
+        sds.zero_grad()
+        xg = x70.clone().requires_grad_(True)
+        y = sds(xg)
+        r = y.detach() - yt70
+        losses.append(float(0.5 * torch.dot(r, r)))
+        y.backward(r)
+        if step == 0:
+            first = (to_np(y), to_np(r), to_np(xg.grad))
+        sds.sgd_step(T70_LR)
+        layouts_equal.append(bool(np.array_equal(sds.values(),
+                                                 sds.values_T())))
+    r = sds(x70).detach() - yt70
+    losses.append(float(0.5 * torch.dot(r, r)))
+    # ShardedDiffSpmv (the value-vector trainer the stream trainer is
+    # built on): its own values scattered into the shards' streams
+    sdv = sds.d
+    sdv.zero_grad()
+    xg = x70.clone().requires_grad_(True)
+    y = sdv(xg)
+    y.backward(yt70)
+    diff_out = (to_np(y.detach()), to_np(xg.grad),
+                sdv.unstack_values([v.grad for v in sdv.vals]))
+    with torch.no_grad():
+        logits = sg(X_gcn)
+    gcn_losses = []
+    for _ in range(GCN_STEPS):
+        sg.zero_grad()
+        loss = torch.nn.functional.cross_entropy(sg(X_gcn), labels)
+        loss.backward()
+        gcn_losses.append(float(loss.detach()))
+        with torch.no_grad():
+            for p in sg.parameters():
+                p -= GCN_LR * p.grad
+    with torch.no_grad():
+        gcn_losses.append(float(torch.nn.functional.cross_entropy(
+            sg(X_gcn), labels)))
+    pr = to_np(spr.run(iters=PR_ITERS))
+    lv = to_np(sbf.run(source=0))
+    dist = to_np(sss.run(source=0))
+    torch.cuda.synchronize()
+    w1 = time.perf_counter()
+    launches = counts(kernels)
+    print(f"mesh: main path {w1 - w0:.1f} s; launches {launches}",
+          flush=True)
+    check(all(launches[k] > 0 for k in ("wavepack_spmv", "wavepack_spmm",
+                                        "wavepack_gradstream", "row_fold")),
+          f"the mesh path's kernel counts {launches}")
+
+    # googleplus: 1-D against f64, the 2-D and multi-host meshes against
+    # the 1-D mesh
+    y1n = to_np(y1)
+    check(y1n.shape == (m_gplus.num_rows,) and bool(np.isfinite(y1n).all()),
+          f"mesh googleplus y {y1n.shape} not finite")
+    e_1 = rel_err(y1n, spmv_f64(m_gplus, to_np(x_g)))
+    e_2, e_mh = rel_err(to_np(y2), y1n), rel_err(to_np(ymh), y1n)
+    ok_nat = exact(y1, sp1.unpack_y(sp1(x_g)))
+    print(f"mesh googleplus: 1-D vs spmv_f64 {e_1:.3e}; 2x2 vs 1-D "
+          f"{e_2:.3e}; hosts x chips vs 1-D {e_mh:.3e} (gate {TOL_F64}); "
+          f"natural y bit-equal run to run {ok_nat}", flush=True)
+    check(max(e_1, e_2, e_mh) <= TOL_F64 and ok_nat,
+          f"mesh googleplus: {e_1} / {e_2} / {e_mh}, fixed {ok_nat}")
+    # Q8.24 and min_plus: bit for bit
+    ok_f = bool(np.array_equal(yf.numpy(), spmv_fixed_vec(m_f, x_f,
+                                                          m_f.data)))
+    y_one = op_t(x_t)
+    ok_t = exact(yt1, y_one) and exact(yt2, y_one)
+    print(f"mesh fixed row: y == spmv_fixed_vec {ok_f}; min_plus 1-D and "
+          f"2x2 == the single-device operator {ok_t}", flush=True)
+    check(ok_f and ok_t, f"mesh fixed row {ok_f}, min_plus {ok_t}")
+    # training: step 1 against float64 on the values the streams held
+    y0, r0, xbar0 = first
+    a64 = sds.m.to_scipy().astype(np.float64)
+    a64.data = vals0.astype(np.float64)
+    e_y = rel_err(y0, a64 @ to_np(x70).astype(np.float64))
+    e_xb = rel_err(xbar0, a64.T @ r0.astype(np.float64))
+    print(f"mesh transformer-70: loss "
+          f"{' -> '.join(f'{v:.6g}' for v in losses)}; step 1 y vs f64 "
+          f"{e_y:.3e}, x_bar {e_xb:.3e} (gate {TOL_F64}); "
+          f"layouts bit-equal after each step {all(layouts_equal)}",
+          flush=True)
+    check(all(layouts_equal), "mesh transformer-70: layouts differ")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"mesh transformer-70 loss did not fall: {losses}")
+    check(e_y <= TOL_F64 and e_xb <= TOL_F64,
+          f"mesh transformer-70 step 1 vs f64: {e_y} / {e_xb}")
+    # ShardedDiffSpmv: y and x_bar against float64 on the values its
+    # streams carry (the steal-mantissa truncation of the matrix's),
+    # dL/dvals bit-equal to the float32 products g[rows] * x[cols]
+    y_d, xbar_d, vbar_d = diff_out
+    m70c = sdv.m
+
+    def carried_f64(steal: bool):
+        a = m70c.to_scipy().astype(np.float64)
+        v = m70c.data
+        if steal:
+            v = (v.view(np.uint32) & np.uint32(0xFFFFFF80)).view(np.float32)
+        a.data = v.astype(np.float64)
+        return a
+
+    g70, x70n = to_np(yt70), to_np(x70)
+    e_dy = rel_err(y_d, carried_f64(sdv.cfg.steal_mantissa)
+                   @ x70n.astype(np.float64))
+    e_dxb = rel_err(xbar_d, carried_f64(sdv.cfgT.steal_mantissa).T
+                    @ g70.astype(np.float64))
+    rows70 = np.repeat(np.arange(m70c.num_rows), np.diff(m70c.indptr))
+    ok_dv = bool(np.array_equal(vbar_d, g70[rows70] * x70n[m70c.indices]))
+    print(f"mesh transformer-70 ShardedDiffSpmv: y vs f64 {e_dy:.3e}, "
+          f"x_bar {e_dxb:.3e} (gate {TOL_F64}); dL/dvals == g[rows] * "
+          f"x[cols] {ok_dv}", flush=True)
+    check(e_dy <= TOL_F64 and e_dxb <= TOL_F64 and ok_dv,
+          f"mesh ShardedDiffSpmv: y {e_dy}, x_bar {e_dxb}, dvals {ok_dv}")
+    # GCN: the single-device model's logits on the same parameters
+    e_g = rel_err(to_np(logits), to_np(logits_one))
+    print(f"mesh gcn: logits vs the single-device GCN {e_g:.3e} (gate "
+          f"{TOL_MESH_GCN}); loss "
+          f"{' -> '.join(f'{v:.6g}' for v in gcn_losses)}", flush=True)
+    check(e_g <= TOL_MESH_GCN, f"mesh gcn logits vs GCN {e_g}")
+    check(gcn_losses[-1] < gcn_losses[0],
+          f"mesh gcn loss did not fall: {gcn_losses}")
+    # the apps
+    ref_pr = pagerank_reference(g, iters=PR_ITERS)
+    e_pr = float(np.abs(pr - ref_pr).max() / np.abs(ref_pr).max())
+    ok_bfs = bool(np.array_equal(lv, apps["bfs_levels"]))
+    ok_ss = bool(np.array_equal(dist, apps["sssp_dist"]))
+    print(f"mesh apps: pagerank vs reference {e_pr} (gate {TOL_MESH_PR}); "
+          f"bfs levels == BFS {ok_bfs}; sssp pokec ({sss.iters_run} "
+          f"iterations) == SSSP {ok_ss}", flush=True)
+    check(e_pr <= TOL_MESH_PR, f"mesh pagerank {e_pr}")
+    check(ok_bfs and ok_ss, f"mesh bfs {ok_bfs}, sssp {ok_ss}")
+
+    # one shard of each kernel against its plain version: the SpMV and the
+    # gradient stream on transformer-70's first shard (A pack), the SpMM on
+    # the GCN's first shard at F = 16, the fold on googleplus's first shard
+    op70 = sds.d.opsA[0]
+    x0 = x70 if op70.col_order is None else x70[op70.col_order]
+    args = op70.stream_args(x0, sds.vA[0].detach())
+    e_spmv = rel_err(to_np(wavepack_spmv(*args, op70.cfg)),
+                     to_np(spmv_tiles_plain(*args, op70.cfg)))
+    g0 = torch.from_numpy(r0[:sds.d.rows_per_shard]).to(dev)
+    gargs = grad_stream_operands(op70, sds.vA[0].detach(), sds.maskA[0],
+                                 g0, x70)
+    ok_grad = exact(wavepack_gradstream(*gargs),
+                    gradstream_tiles_plain(*gargs))
+    opg = sg.agg.opsA[0]
+    H = torch.from_numpy(np.random.default_rng(37).standard_normal(
+        (opg.wp.num_cols, 16)).astype(np.float32)).to(dev)
+    sargs = (opg.vals, opg.idxT, opg.tile_part, opg.class_map,
+             opg.run_start, opg.run_end,
+             build_xt_multi(H, opg.cfg, opg.wp.n_parts), opg.cfg)
+    e_spmm = rel_err(to_np(wavepack_spmm(*sargs)),
+                     to_np(spmm_tiles_plain(*sargs)))
+    op1 = sp1.ops[0]
+    y_ren = sp1(x_g)[0]
+    ok_fold = exact(row_fold(y_ren, op1.fold_idx, op1.fold_ptr,
+                             op1.fold_long, "plus_times"),
+                    row_fold_plain(y_ren, op1.fold_idx, op1.fold_ptr,
+                                   "plus_times"))
+    print(f"mesh kernels vs plain, shard 0: spmv (transformer-70 A) "
+          f"{e_spmv:.3e}, spmm F=16 (gcn A-hat) {e_spmm:.3e} (gate "
+          f"{TOL_PLAIN}); gradient stream bit-equal {ok_grad}; fold "
+          f"(googleplus) bit-equal {ok_fold}", flush=True)
+    check(e_spmv <= TOL_PLAIN and e_spmm <= TOL_PLAIN and ok_grad
+          and ok_fold, f"mesh kernels vs plain: spmv {e_spmv}, spmm "
+          f"{e_spmm}, gradient stream {ok_grad}, fold {ok_fold}")
+
+    # times: the sharded steps beside the single-device ones on the same
+    # matrices (CUDA events, the host's enqueue included)
+    op_one = SpmvOperator(pack(m_gplus, cfg_g, split_max=split_g), dev)
+    sd_one = StreamDiffSpmv(m70, SpmvConfig(**T70_CFG),
+                            SpmvConfig(**T70_CFG_T), device=dev,
+                            split_max=None)
+
+    def train_step(module):
+        def step():
+            module.zero_grad(set_to_none=True)
+            xg = x70.detach().requires_grad_(True)
+            y = module(xg)
+            y.backward(y.detach() - yt70)
+        return step
+
+    x_pr = spr.st.zeros()
+    x_pr[:g.num_rows] = 1.0 / g.num_rows
+    d_pk = torch.from_numpy(dist).to(dev)
+    times = {
+        "googleplus forward, 4 shards": device_time_ms(
+            lambda: sp1.unpack_y(sp1(x_g)), reps=20),
+        "googleplus forward, 2x2": device_time_ms(
+            lambda: sp2.unpack_y(sp2(x_g)), reps=20),
+        "googleplus forward, one operator": device_time_ms(
+            lambda: op_one(x_g), reps=20),
+        "transformer-70 step, 4 shards": device_time_ms(
+            train_step(sds), reps=20),
+        "transformer-70 step, one module": device_time_ms(
+            train_step(sd_one), reps=20),
+        "transformer-70 step, 4 shards (values)": device_time_ms(
+            train_step(sdv), reps=20),
+        "pagerank-100k step, 4 shards": device_time_ms(
+            lambda: spr.step(x_pr), reps=20),
+        "sssp-pokec step, 4 shards": device_time_ms(
+            lambda: sss.st.step(d_pk), reps=5),
+    }
+    for what, ms in times.items():
+        print(f"time mesh {what:40s} {ms:.4f} ms", flush=True)
+    profiles = {
+        "googleplus forward, 4 shards": profile_breakdown(
+            lambda: sp1.unpack_y(sp1(x_g))),
+        "sssp-pokec step, 4 shards": profile_breakdown(
+            lambda: sss.st.step(d_pk), steps=3)}
+    for what, prof in profiles.items():
+        print_profile(f"mesh {what}", prof)
+    return launches, {
+        "googleplus_rel_err": e_1, "rel_err_2d": e_2,
+        "rel_err_multihost": e_mh, "pagerank_rel_err": e_pr,
+        "gcn_rel_err": e_g, "transformer70_losses": losses,
+        "diffspmv_rel_err": [e_dy, e_dxb],
+        "times_ms": times, "tiles": tiles,
+        "idle_share": {k: p["idle_share"] for k, p in profiles.items()}}
 
 
 def main() -> None:
@@ -1733,23 +2084,40 @@ def main() -> None:
           flush=True)
 
     dev = torch.device("cuda")
-    fams = phase_families(dev)                           # phase 3
-    m, rec_spmv, rec_fold, l_serve = phase_serving(
-        dev, _kernels)                                   # phase 4
-    worst_g, worst_s = phase_kernel_families(dev)        # phase 5
+    t_phase = time.perf_counter()
+    print(f"chip_smoke: phases 1-2 in {t_phase - t_start:.1f} s", flush=True)
+
+    def done(n: int) -> None:
+        nonlocal t_phase
+        t = time.perf_counter()
+        print(f"chip_smoke: phase {n} in {t - t_phase:.1f} s", flush=True)
+        t_phase = t
+
+    fams = phase_families(dev)
+    done(3)
+    m, rec_spmv, rec_fold, l_serve = phase_serving(dev, _kernels)
+    done(4)
+    worst_g, worst_s = phase_kernel_families(dev)
     semiring = phase_semiring_families(dev)
-    rec_grad, rec_train_spmv, l_train = phase_training(
-        dev, _kernels)                                   # phase 6
-    rec_spmm, rec_fold_gcn, l_gcn = phase_gcn(
-        dev, _kernels, m)                                # phase 7
-    rec_apps, rec_masked, rec_spmm_paged, l_apps = phase_apps(
-        dev, _kernels)                                   # phase 8
-    rec_bcsr, rec_rows, l_dispatch = phase_dispatch(
-        dev, _kernels, m)                                # phase 9
-    del m
+    done(5)
+    rec_grad, rec_train_spmv, l_train = phase_training(dev, _kernels)
+    done(6)
+    rec_spmm, rec_fold_gcn, l_gcn, gcn_ctx = phase_gcn(dev, _kernels, m)
+    done(7)
+    rec_apps, rec_masked, rec_spmm_paged, l_apps, apps_ctx = phase_apps(
+        dev, _kernels)
+    done(8)
+    rec_bcsr, rec_rows, l_dispatch, fixed_ctx = phase_dispatch(
+        dev, _kernels, m)
+    done(9)
+    l_mesh, rec_mesh = phase_mesh(dev, _kernels, m, gcn_ctx, apps_ctx,
+                                  fixed_ctx)
+    done(10)
+    del m, gcn_ctx, apps_ctx
+    print("mesh: " + json.dumps(rec_mesh), flush=True)
 
     paths = {"serving": l_serve, "training": l_train, "gcn": l_gcn,
-             "apps": l_apps, "dispatch": l_dispatch}
+             "apps": l_apps, "dispatch": l_dispatch, "mesh": l_mesh}
     src = "hisparse_tpu_torch/csrc/"
     ref = "hisparse_tpu/ops/spmv.py"
     # the SpMV kernel's max_abs_err covers googleplus, the training packs
@@ -1787,7 +2155,7 @@ def main() -> None:
             launches_by_path={k: p[name] for k, p in paths.items()},
             **rec, **extra)
         record["kernels"].append(entry)
-    print(f"chip_smoke: phases 1-9 in {time.perf_counter() - t_start:.1f} s",
+    print(f"chip_smoke: phases 1-10 in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

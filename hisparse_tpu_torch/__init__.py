@@ -13,8 +13,10 @@ the JAX package's (numpy and the native C++ scheduler); the TPU's Pallas
 kernels become CUDA C++ kernels (``csrc/wavepack_spmv.cu``, SpMV, SpMM
 and masked SpMV; ``csrc/wavepack_gradstream.cu``; ``csrc/bcsr.cu``).
 Entry points run on the card unless the caller asks for the CPU
-(``device="cpu"``).  This package imports neither JAX, ``hisparse_tpu``
-nor ``ml_dtypes``: bf16 streams are carried as their uint16 bit patterns.
+(``device="cpu"``).  ``hisparse_tpu_torch.parallel`` (not imported here)
+shards them over a device mesh driven by one process.  This package
+imports neither JAX, ``hisparse_tpu`` nor ``ml_dtypes``: bf16 streams are
+carried as their uint16 bit patterns.
 """
 from .config import LANES, SpmvConfig, GRAPH_CONFIG, NN_CONFIG
 from .formats.csr import (CSRMatrix, load_npz, save_npz, round_dims,

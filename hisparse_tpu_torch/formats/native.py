@@ -26,6 +26,9 @@ _SRC = os.path.join(_HERE, "_scheduler.cpp")
 _BUILD = os.path.join(os.path.dirname(_HERE), "_build")
 _SO = os.path.join(_BUILD, "_scheduler.so")
 _lock = threading.Lock()
+# wp_plan keeps its plan in the library's globals for wp_emit_full: one
+# plan + emit pair at a time per process, so that packs may run in threads
+_pack_lock = threading.Lock()
 _lib = None
 _failed = False
 
@@ -109,53 +112,57 @@ def pack_full(indptr, indices, data, rank, col_rank, cfg,
     rank = np.ascontiguousarray(rank, np.int64)
     if col_rank is not None:
         col_rank = np.ascontiguousarray(col_rank, np.int64)
-    T = ctypes.c_int64(0)
-    nleft = ctypes.c_int64(0)
-    opt_waves = ctypes.c_int64(0)
-    rc = lib.wp_plan(
-        ctypes.c_int64(nnz), ctypes.c_int64(n_rows),
-        _ptr(indptr, _i64p), _ptr(indices, _i32p), _ptr(data_bits, _u32p),
-        _ptr(rank, _i64p),
-        _ptr(col_rank, _i64p) if col_rank is not None else None,
-        ctypes.c_int32(n_blocks), ctypes.c_int32(n_parts),
-        ctypes.c_int32(cfg.stripes), ctypes.c_int32(cfg.sublanes),
-        ctypes.c_int32(cfg.bank_blocks),
-        ctypes.c_int32(int(cfg.two_choice)),
-        ctypes.c_int32(int(cfg.block_major)),
-        ctypes.c_int32(cfg.classes_per_group),
-        ctypes.c_int32(bm_win), ctypes.c_int32(bm_adv),
-        ctypes.c_int64(min_tile),
-        ctypes.byref(T), ctypes.byref(nleft), ctypes.byref(opt_waves))
-    if rc != 0:
-        return None
-    tp1 = time.perf_counter()
-    T, nleft = int(T.value), int(nleft.value)
-    S, G, K = cfg.sublanes, cfg.groups, cfg.classes_per_group
-    val_dtype = data.dtype if cfg.dtype in ("fixed", "bf16") else np.float32
-    vals = np.empty((T, S, 128), val_dtype)
-    idx16 = getattr(cfg, "idx16", False)
-    idxT = np.empty((T, S, 128), np.int16 if idx16 else np.int32)
-    t_block = np.empty(T, np.int32)
-    t_part = np.empty(T, np.int32)
-    t_first = np.empty(T, np.int32)
-    t_last = np.empty(T, np.int32)
-    cmap = (np.empty((T, G, K), np.int32) if cfg.block_major else None)
-    leftover = np.empty(nleft, np.int64)
-    pad = (np.float32(np.inf) if cfg.semiring == "min_plus"
-           else val_dtype.type(0) if hasattr(val_dtype, "type")
-           else np.float32(0))
-    pad_bits = int(np.asarray(pad).view(
-        np.uint16 if val16 else np.uint32))
-    tp2 = time.perf_counter()
-    lib.wp_emit_full(
-        ctypes.c_int32(int(cfg.steal_mantissa)), ctypes.c_int32(int(val16)),
-        ctypes.c_int32(int(idx16)), ctypes.c_uint32(pad_bits),
-        _ptr(vals.view(np.uint16 if val16 else np.uint32), _u32p),
-        idxT.ctypes.data_as(_i32p),    # C++ reinterprets as u16 when idx16
-        _ptr(t_block, _i32p), _ptr(t_part, _i32p),
-        _ptr(t_first, _i32p), _ptr(t_last, _i32p),
-        _ptr(cmap, _i32p) if cmap is not None else None,
-        _ptr(leftover, _i64p) if nleft else None)
+    with _pack_lock:
+        T = ctypes.c_int64(0)
+        nleft = ctypes.c_int64(0)
+        opt_waves = ctypes.c_int64(0)
+        rc = lib.wp_plan(
+            ctypes.c_int64(nnz), ctypes.c_int64(n_rows),
+            _ptr(indptr, _i64p), _ptr(indices, _i32p),
+            _ptr(data_bits, _u32p),
+            _ptr(rank, _i64p),
+            _ptr(col_rank, _i64p) if col_rank is not None else None,
+            ctypes.c_int32(n_blocks), ctypes.c_int32(n_parts),
+            ctypes.c_int32(cfg.stripes), ctypes.c_int32(cfg.sublanes),
+            ctypes.c_int32(cfg.bank_blocks),
+            ctypes.c_int32(int(cfg.two_choice)),
+            ctypes.c_int32(int(cfg.block_major)),
+            ctypes.c_int32(cfg.classes_per_group),
+            ctypes.c_int32(bm_win), ctypes.c_int32(bm_adv),
+            ctypes.c_int64(min_tile),
+            ctypes.byref(T), ctypes.byref(nleft), ctypes.byref(opt_waves))
+        if rc != 0:
+            return None
+        tp1 = time.perf_counter()
+        T, nleft = int(T.value), int(nleft.value)
+        S, G, K = cfg.sublanes, cfg.groups, cfg.classes_per_group
+        val_dtype = (data.dtype if cfg.dtype in ("fixed", "bf16")
+                     else np.float32)
+        vals = np.empty((T, S, 128), val_dtype)
+        idx16 = getattr(cfg, "idx16", False)
+        idxT = np.empty((T, S, 128), np.int16 if idx16 else np.int32)
+        t_block = np.empty(T, np.int32)
+        t_part = np.empty(T, np.int32)
+        t_first = np.empty(T, np.int32)
+        t_last = np.empty(T, np.int32)
+        cmap = (np.empty((T, G, K), np.int32) if cfg.block_major else None)
+        leftover = np.empty(nleft, np.int64)
+        pad = (np.float32(np.inf) if cfg.semiring == "min_plus"
+               else val_dtype.type(0) if hasattr(val_dtype, "type")
+               else np.float32(0))
+        pad_bits = int(np.asarray(pad).view(
+            np.uint16 if val16 else np.uint32))
+        tp2 = time.perf_counter()
+        lib.wp_emit_full(
+            ctypes.c_int32(int(cfg.steal_mantissa)),
+            ctypes.c_int32(int(val16)),
+            ctypes.c_int32(int(idx16)), ctypes.c_uint32(pad_bits),
+            _ptr(vals.view(np.uint16 if val16 else np.uint32), _u32p),
+            idxT.ctypes.data_as(_i32p),   # C++ reads u16 words when idx16
+            _ptr(t_block, _i32p), _ptr(t_part, _i32p),
+            _ptr(t_first, _i32p), _ptr(t_last, _i32p),
+            _ptr(cmap, _i32p) if cmap is not None else None,
+            _ptr(leftover, _i64p) if nleft else None)
     if prof:
         import sys
         print(f"pack_full: plan {tp1-tp0:.2f}s alloc {tp2-tp1:.2f}s "

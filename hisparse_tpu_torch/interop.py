@@ -18,7 +18,11 @@ Training state crosses too:
     layout (``StreamDiffSpmv``'s ``vA`` / ``vT``, its masks, its gradient
     streams) into the port's, which has no pad tiles;
   * :func:`gcn_params_from_jax` turns a JAX GCN parameter list into the
-    port's (``GCN.load_params`` takes it).
+    port's (``GCN.load_params`` takes it);
+  * :func:`sharded_values_from_jax` turns the JAX mesh trainers' stacked
+    per-device state (``ShardedDiffSpmv``'s ``(n_devices, nnz_max)``
+    values, ``ShardedStreamDiffSpmv``'s ``(n_devices, T, S, 128)``
+    streams and their gradients) into the port's one tensor a shard.
 
 This module imports neither JAX nor the JAX package: it takes numpy
 arrays (``np.asarray`` of a JAX array is one).
@@ -75,3 +79,19 @@ def gcn_params_from_jax(params):
     arrays) -> the port's, float32 CPU tensors (``GCN.load_params``)."""
     return [{k: torch.from_numpy(np.array(p[k], np.float32))
              for k in ("w", "b")} for p in params]
+
+
+def sharded_values_from_jax(stacked, lengths) -> list:
+    """A JAX mesh trainer's stacked per-device array -> one float32 CPU
+    tensor a shard: row d of ``stacked`` cut to its first ``lengths[d]``
+    entries along its first axis.  The JAX package pads its stacks to the
+    largest shard; the port's shards are not padded.  For CSR-order values
+    (``(n_devices, nnz_max)``) the lengths are the shards' nonzeros
+    (``nnz_shard``), for streams (``(n_devices, T, S, 128)``) their tile
+    counts."""
+    a = np.asarray(stacked, np.float32)
+    if len(lengths) != a.shape[0]:
+        raise ValueError(f"{a.shape[0]} shards stacked, {len(lengths)} "
+                         "lengths given")
+    return [torch.from_numpy(np.array(a[d, :n]))
+            for d, n in enumerate(lengths)]

@@ -145,18 +145,23 @@ class GCN(torch.nn.Module):
         if len(dims) < 2:
             raise ValueError("dims needs at least [d_in, d_out]")
         a = gcn_normalize(adj) if normalize else adj
-        self.agg = DiffSpmm(a, config, configT, device=device,
-                            split_max=split_max, col_order=col_order,
-                            col_orderT=col_order, **pack_kw)
+        agg = DiffSpmm(a, config, configT, device=device,
+                       split_max=split_max, col_order=col_order,
+                       col_orderT=col_order, **pack_kw)
+        self._init_layers(agg, dims, seed, agg.op.device)
+
+    def _init_layers(self, agg, dims, seed: int, device) -> None:
+        """The aggregation ``agg`` and the layers' parameters on
+        ``device``, initialised by :func:`gcn_init_params`."""
+        self.agg = agg
         self.dims = list(dims)
-        self.num_nodes = self.agg.num_rows
-        dev = self.agg.op.device
+        self.num_nodes = agg.num_rows
         init = gcn_init_params(self.dims, seed)
         self.w = torch.nn.ParameterList(
-            [torch.nn.Parameter(p["w"].to(dev)) for p in init])
+            [torch.nn.Parameter(p["w"].to(device)) for p in init])
         self.b = torch.nn.ParameterList(
-            [torch.nn.Parameter(p["b"].to(dev)) for p in init])
-        self._apply_fn = gcn_apply_fn(self.agg, self.dims)
+            [torch.nn.Parameter(p["b"].to(device)) for p in init])
+        self._apply_fn = gcn_apply_fn(agg, self.dims)
 
     def params(self):
         """The parameters as ``[{'w', 'b'}, ...]``."""

@@ -42,6 +42,13 @@ def bcast_to_acc(vec_ext, perm, n_blocks: int, S: int, R: int):
     return ren[:, None].expand(n_blocks, S // R, R, 128).reshape(-1, 128)
 
 
+def with_bits(v, plant):
+    """v with its low 7 mantissa bits cleared and, if ``plant`` is given,
+    set to it: the steal-mantissa clean and replant."""
+    bits = v.view(torch.int32) & -128
+    return (bits if plant is None else bits | plant).view(torch.float32)
+
+
 def grad_stream_operands(op, vals, mask, g, x):
     """The operands of ``wavepack_gradstream`` for dL/dvals of ``op``'s
     stream ``vals``, given the output cotangent ``g`` (natural row order)
@@ -144,25 +151,18 @@ class StreamDiffSpmv(torch.nn.Module):
         return _StreamSpmvFn.apply(self.vA if vA is None else vA,
                                    self.vT if vT is None else vT, x, self)
 
-    @staticmethod
-    def _with_bits(v, plant):
-        """v with its low 7 mantissa bits cleared and, if ``plant`` is
-        given, set to it."""
-        bits = v.view(torch.int32) & -128
-        return (bits if plant is None else bits | plant).view(torch.float32)
-
     def clean(self, vA, vT):
         """Strip each layout's planted src bits, so that update arithmetic
         sees the clean value plane, identical across layouts (identity for
         non-steal packs)."""
-        return (self._with_bits(vA, None) if self.d.stealA else vA,
-                self._with_bits(vT, None) if self.d.stealT else vT)
+        return (with_bits(vA, None) if self.d.stealA else vA,
+                with_bits(vT, None) if self.d.stealT else vT)
 
     def replant(self, vA, vT):
         """Re-truncate and re-plant the steal-mantissa src bits after an
         elementwise update (identity for non-steal packs)."""
-        return (self._with_bits(vA, self.splantA) if self.d.stealA else vA,
-                self._with_bits(vT, self.splantT) if self.d.stealT else vT)
+        return (with_bits(vA, self.splantA) if self.d.stealA else vA,
+                with_bits(vT, self.splantT) if self.d.stealT else vT)
 
     @torch.no_grad()
     def sgd_step(self, lr: float, gA=None, gT=None) -> None:

@@ -23,7 +23,11 @@ within 1e-5 of max|Y|, bf16 blocks on the tensor cores (whose fp32
 accumulation is not IEEE-ordered) within 1e-4.  The renamed -> natural
 fold adds each row's partials in one fixed order, so natural-order y is
 held bit for bit: against the plain fold, against ``Wavepack.unpack_y``
-and between two runs.
+and between two runs.  The mesh cases put four shards on one card
+(``hisparse_tpu_torch.parallel``) and hold them against the single-device
+results (min_plus, SSSP, BFS bit for bit; the GCN within 1e-5), the f64
+golden (1e-4) and the same module on a CPU mesh (1e-6; gradient streams,
+dL/dvals and Q8.24 words bit for bit).
 """
 import itertools
 
@@ -861,3 +865,177 @@ def test_gradstream_on_the_training_packs(cuda_device):
                 (sd.d.opT, sd.vT.detach(), sd.maskT, x, g)):
         gargs = grad_stream_operands(*ops)
         _exact(wavepack_gradstream(*gargs), gradstream_tiles_plain(*gargs))
+
+
+# -- the mesh: four shards on one card --------------------------------------
+
+
+def _mesh(dev, shape=(4,), names=("rows",)):
+    from hisparse_tpu_torch.parallel import Mesh
+    return Mesh(np.array([dev] * 4).reshape(shape), names)
+
+
+@pytest.mark.cuda
+def test_mesh_spmv_four_shards_on_cuda(cuda_device):
+    """``ShardedSpmv`` on four shards of ``cuda:0``: one SpMV launch and
+    one fold a shard, natural y bit-equal run to run and within 1e-4 of
+    the f64 golden; the 2 x 2 ``ShardedSpmv2D`` within 1e-6 of it; in
+    min_plus both bit-equal to the single-device operator's y."""
+    from hisparse_tpu_torch import SpmvConfig, pack, powerlaw_csr
+    from hisparse_tpu_torch.parallel import ShardedSpmv, ShardedSpmv2D
+    m = powerlaw_csr(3000, 2800, 9, alpha=1.2, seed=2)
+    x = np.random.default_rng(1).random(m.num_cols).astype(np.float32)
+    cfg = SpmvConfig(sublanes=128, bank_blocks=1, stripes=128)
+    op = ShardedSpmv(m, _mesh(cuda_device), cfg, split_max=32)
+    b_spmv, b_fold = _kernels.launches, _kernels.fold_launches
+    y1 = op.unpack_y(op(x))
+    assert (_kernels.launches - b_spmv, _kernels.fold_launches - b_fold) \
+        == (4, 4)
+    assert y1.device.type == "cuda" and y1.shape == (m.num_rows,)
+    _exact(y1, op.unpack_y(op(x)))
+    assert _err(y1, torch.from_numpy(spmv_f64(m, x))) <= 1e-4
+    op2 = ShardedSpmv2D(m, _mesh(cuda_device, (2, 2), ("rows", "cols")),
+                        cfg, split_max=32)
+    assert _err(op2.unpack_y(op2(x)), y1) <= 1e-6
+    tropical = SpmvConfig(sublanes=128, bank_blocks=1, stripes=128,
+                          semiring="min_plus", two_choice=False)
+    y_one = SpmvOperator(pack(m, tropical, split_max=32), cuda_device)(
+        torch.from_numpy(x).to(cuda_device))
+    for o in (ShardedSpmv(m, _mesh(cuda_device), tropical, split_max=32),
+              ShardedSpmv2D(m, _mesh(cuda_device, (2, 2),
+                                     ("rows", "cols")), tropical,
+                            split_max=32)):
+        _exact(o.unpack_y(o(x)), y_one)
+
+
+@pytest.mark.cuda
+def test_mesh_fixed_point_on_cuda(cuda_device):
+    """A Q8.24 ``ShardedSpmv`` on four shards of ``cuda:0`` folds each
+    shard's words on the card (one fold launch a shard, the saturating
+    sum) and returns natural y as uint32 words, bit-equal to
+    ``spmv_fixed_vec`` and to the same module on a CPU mesh."""
+    from hisparse_tpu_torch import SpmvConfig, uniform_sparse_csr
+    from hisparse_tpu_torch.ops.golden import float_to_fixed
+    from hisparse_tpu_torch.parallel import ShardedSpmv
+    m = uniform_sparse_csr(3000, 2500, 8, seed=21)
+    m.data = float_to_fixed(m.data / m.num_cols)
+    x = float_to_fixed(np.random.default_rng(5).random(m.num_cols))
+    cfg = SpmvConfig(sublanes=128, bank_blocks=1, stripes=128,
+                     dtype="fixed", two_choice=False)
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        op = ShardedSpmv(m, _mesh(dev), cfg, split_max=16)
+        b_fold = _kernels.fold_launches
+        y = op.unpack_y(op(x))
+        if dev.type == "cuda":
+            assert _kernels.fold_launches - b_fold == 4
+        assert y.dtype == torch.uint32 and y.device.type == "cpu"
+        out.append(y.numpy())
+    np.testing.assert_array_equal(out[0], spmv_fixed_vec(m, x, m.data))
+    np.testing.assert_array_equal(out[0], out[1])
+
+
+@pytest.mark.cuda
+def test_mesh_diff_spmv_on_cuda(cuda_device):
+    """``ShardedDiffSpmv`` on four shards of ``cuda:0``, its values
+    scattered into the shards' streams each call: y and dL/dx within 1e-6
+    of the same module on a CPU mesh and 1e-4 of float64, dL/dvals
+    bit-equal to it and to g[rows] * x[cols]; four SpMV launches forward
+    and four backward."""
+    from hisparse_tpu_torch import SpmvConfig, powerlaw_csr
+    from hisparse_tpu_torch.parallel import ShardedDiffSpmv
+    m = powerlaw_csr(2500, 2200, 8, alpha=1.2, seed=12)
+    cfg = SpmvConfig(sublanes=128, bank_blocks=2, stripes=128,
+                     block_major=True, classes_per_group=2,
+                     two_choice=False)
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal(2200).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal(2500).astype(np.float32))
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        sd = ShardedDiffSpmv(m, _mesh(dev), cfg)
+        xg = x.to(dev, copy=True).requires_grad_(True)
+        before = _kernels.launches
+        y = sd(xg)
+        y.backward(g.to(dev))
+        if dev.type == "cuda":
+            assert _kernels.launches - before == 8
+        out.append((y.detach(), xg.grad,
+                    torch.from_numpy(sd.unstack_values(
+                        [v.grad for v in sd.vals]))))
+    (y, gx, gv), (y_p, gx_p, gv_p) = out
+    assert _err(y, y_p) <= 1e-6 and _err(gx, gx_p) <= 1e-6
+    a = sd.m.to_scipy().astype(np.float64)
+    assert _err(y, torch.from_numpy(a @ x.double().numpy())) <= 1e-4
+    assert _err(gx, torch.from_numpy(a.T @ g.double().numpy())) <= 1e-4
+    _exact(gv, gv_p)
+    rows = np.repeat(np.arange(sd.m.num_rows), np.diff(sd.m.indptr))
+    _exact(gv, torch.from_numpy(g.numpy()[rows] * x.numpy()[sd.m.indices]))
+
+
+@pytest.mark.cuda
+def test_mesh_stream_training_on_cuda(cuda_device):
+    """One ``ShardedStreamDiffSpmv`` step on four shards of ``cuda:0``
+    against the same module on a CPU mesh (the plain versions): y and
+    dL/dx within 1e-6, every shard's gradient streams bit-equal, eight
+    gradient-stream launches; after ``sgd_step`` the layouts agree."""
+    from hisparse_tpu_torch import SpmvConfig, uniform_sparse_csr
+    from hisparse_tpu_torch.parallel import ShardedStreamDiffSpmv
+    cfg = dict(sublanes=512, bank_blocks=1, stripes=4, steal_mantissa=True,
+               idx16=True, two_choice=False)
+    m = uniform_sparse_csr(256, 6000, 1500, seed=70)
+    cfgs = (SpmvConfig(**cfg), SpmvConfig(**dict(cfg, stripes=512)))
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.standard_normal(6000).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal(256).astype(np.float32))
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        sd = ShardedStreamDiffSpmv(m, _mesh(dev), *cfgs, split_max=None)
+        xg = x.to(dev).requires_grad_(True)
+        before = _kernels.gradstream_launches
+        y = sd(xg)
+        y.backward(g.to(dev))
+        if dev.type == "cuda":
+            assert _kernels.gradstream_launches == before + 8
+        out.append((y.detach(), xg.grad, [p.grad for p in sd.vA],
+                    [p.grad for p in sd.vT]))
+        sd.sgd_step(1e-4)
+        np.testing.assert_array_equal(sd.values(), sd.values_T())
+    (y, gx, gA, gT), (y_p, gx_p, gA_p, gT_p) = out
+    assert _err(y, y_p) <= 1e-6 and _err(gx, gx_p) <= 1e-6
+    for a, b in zip(gA + gT, gA_p + gT_p):
+        _exact(a, b.to(cuda_device))
+
+
+@pytest.mark.cuda
+def test_mesh_gcn_and_apps_on_cuda(cuda_device):
+    """``ShardedGCN`` logits within 1e-5 of the single-device ``GCN`` on
+    the same parameters, through the SpMM kernel; ``ShardedPageRank``
+    within 1e-5 of the golden; ``ShardedSSSP`` distances and
+    ``ShardedBFS`` levels equal to the single-device apps'."""
+    from hisparse_tpu_torch import (BFS, GCN, SSSP, SpmvConfig,
+                                    pagerank_reference, powerlaw_csr,
+                                    uniform_sparse_csr)
+    from hisparse_tpu_torch.parallel import (ShardedBFS, ShardedGCN,
+                                             ShardedPageRank, ShardedSSSP)
+    mesh = _mesh(cuda_device)
+    adj = powerlaw_csr(2000, 2000, 6.0, seed=3)
+    cfg = SpmvConfig(sublanes=128, bank_blocks=1, stripes=128)
+    one = GCN(adj, [16, 8, 4], cfg, device=cuda_device)
+    gcn = ShardedGCN(adj, mesh, [16, 8, 4], cfg)
+    gcn.load_params(one.params())
+    X = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2000, 16)).astype(np.float32)).to(cuda_device)
+    before = _kernels.spmm_launches
+    logits = gcn(X)
+    assert _kernels.spmm_launches > before
+    assert _err(logits.detach(), one(X).detach()) <= 1e-5
+    r = ShardedPageRank(adj, mesh).run(iters=15)
+    ref = pagerank_reference(adj, iters=15)
+    assert float(np.abs(r.cpu().numpy() - ref).max()
+                 / np.abs(ref).max()) <= 1e-5
+    w = uniform_sparse_csr(3000, 3000, 5, seed=9)
+    w.data[:] = np.abs(w.data) + 0.1
+    _exact(ShardedSSSP(w, mesh).run(0), SSSP(w, device=cuda_device).run(0))
+    assert torch.equal(ShardedBFS(w, mesh).run(0),
+                       BFS(w, device=cuda_device).run(0))

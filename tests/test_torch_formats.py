@@ -173,7 +173,9 @@ def test_port_imports_no_jax():
     names = {str(p.relative_to(pkg)) for p in files}
     assert {"ops/spmv.py", "ops/autodiff.py", "ops/train_stream.py",
             "models/gnn.py", "models/apps.py", "interop.py", "ops/bcsr.py",
-            "ops/dense.py", "models/perf_model.py", "models/dse.py"} <= names
+            "ops/dense.py", "models/perf_model.py", "models/dse.py",
+            "parallel/mesh.py", "parallel/train.py", "parallel/gnn.py",
+            "parallel/apps.py"} <= names
     pat = re.compile(
         r"^\s*(import|from)\s+(jax|hisparse_tpu|ml_dtypes)(\.|\s|$)", re.M)
     bad = [str(p) for p in files + [root / "chip_smoke.py"]
