@@ -20,8 +20,10 @@ Phases, in order; any failure raises and exits non-zero:
      (fp32, Q8.24 and bf16 values, plus one two-block pack), hold the SpMV
      kernel against its plain PyTorch version on the same CUDA operands
      (max|dy|/max|y| <= 1e-6 for fp32; bf16 and Q8.24 bit for bit) and
-     the operator's y against the golden (f64 within 1e-4, bf16 within
-     8e-3; Q8.24 equal to golden.spmv_fixed_vec);
+     natural y through each against the golden (f64 within 1e-4, bf16
+     within 1e-4 of the golden of its rounded values and 8e-3 of the
+     unrounded; Q8.24 equal to golden.spmv_fixed_vec), through the parity
+     sweep's own check (utils/parity.spmv_family);
   4. serving at full size: the googleplus stand-in of the suite,
      powerlaw_csr(108000, 108000, 127, 1.2, seed=11), packed natively at
      its tuned design point, through SpmvOperator(wp, device="cuda") to
@@ -138,6 +140,23 @@ Phases, in order; any failure raises and exits non-zero:
      those kernels against its plain version; each shard's tiles; the
      sharded forwards and steps timed beside one
      operator's on the same matrices, and two of them profiled.
+ 11. tooling and the hybrid: phase 4's googleplus matrix through
+     pack_hybrid (block-major bulk that stops when tiles go thin, the
+     leftovers as a select-chain tail; split 64, degree column order, each
+     pack its own) and HybridSpmv(device="cuda"): both packs' tiles, fill,
+     MB and the host seconds printed; y within 1e-4 of spmv_f64; each of
+     the two launches within 1e-6 of its plain version; natural y
+     bit-equal run to run and to the CPU HybridSpmv on the same packs; the
+     counted forward launches wavepack_spmv twice and row_fold once.  The
+     kernel time of each launch, the hybrid forward, and the single pack's
+     kernel and forward timed in turns (single, hybrid, hybrid, single)
+     and printed beside phase 4's.  measure_spmv (the reference's
+     benchmark row) of the single pack and the hybrid, with
+     device_hbm_gbps and measured_peak_gbps; device_profile around three
+     hybrid forwards into smoke_out/, its trace required to
+     hold a wavepack kernel event; and parity_sweep over the 23 families of parity_tpu.json, every family
+     required ok, its record written to
+     smoke_out/parity_cuda.json.
 
 Each phase prints its seconds.  The kernels' times keep the host's
 enqueue out (``device_time_ms(queued=True)``); the forwards, steps and
@@ -157,6 +176,7 @@ launches (registers, shared memory, CTAs per SM); the last is
 ``{"ok": true, "device": {...}}``.
 """
 import json
+import os
 import resource
 import subprocess
 import sys
@@ -194,13 +214,17 @@ BCSR16K = dict(shape=(16384, 16384), block_rows=24, seed=7)
 BCSR_RHS = 64
 TOL_PLAIN = 1e-6
 TOL_F64 = 1e-4
-TOL_BF16 = 8e-3               # one bf16 rounding a term (test_formats.py:433)
 # phase 10: four shards on one card; the sharded GCN and PageRank against
 # the single-device GCN and the golden (the sums of a shard run in another
 # order than the whole matrix's)
 MESH_SHARDS = 4
 TOL_MESH_GCN = 1e-5
 TOL_MESH_PR = 1e-5
+# phase 11: the hybrid pack of googleplus (pack_hybrid's own stop_frac)
+# and the output directory of its trace and parity record
+HYBRID_PACK = dict(split_max=64, col_order="degree")
+OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "smoke_out")
 # the card's peaks for bound_ms (NVIDIA data sheet, H100 SXM at 700 W): HBM3
 # bytes, fp32 operations outside the tensor cores and bf16 operations on
 # them, a second
@@ -503,48 +527,20 @@ def family_x(op, x, dev):
 def phase_families(dev) -> dict:
     """Phase 3: the SpMV kernel vs its plain version on every plus_times
     family (fp32 within TOL_PLAIN, bf16 and Q8.24 bit for bit) and the
-    operator's y against the golden."""
-    from hisparse_tpu_torch import SpmvOperator
-    from hisparse_tpu_torch.ops.golden import spmv_f64, spmv_fixed_vec
-    from hisparse_tpu_torch.ops.spmv import spmv_tiles_plain, wavepack_spmv
+    natural y against the golden, through ``utils/parity.spmv_family``
+    (the parity sweep's own check)."""
     from hisparse_tpu_torch.utils.bench import (MULTIBLOCK_FAMILY,
-                                               PLUS_TIMES_FAMILIES,
-                                               family_case)
+                                               PLUS_TIMES_FAMILIES)
+    from hisparse_tpu_torch.utils.parity import print_sweep, spmv_family
     worst, n_exact = 0.0, 0
     for fam in PLUS_TIMES_FAMILIES + (MULTIBLOCK_FAMILY,):
-        m, wp, x = family_case(fam)
-        op = SpmvOperator(wp, device=dev)
-        dtype = op.cfg.dtype
-        args = op.stream_args(family_x(op, x, dev))
-        acc_k = wavepack_spmv(*args, op.cfg)
-        acc_p = spmv_tiles_plain(*args, op.cfg)
-        head = (f"family {fam[0]:18s} tiles {wp.num_tiles:3d} blocks "
-                f"{wp.n_blocks} parts {wp.n_parts}: ")
-        if dtype != "fp32":
-            ok = exact(acc_k, acc_p)
-            if dtype == "fixed":
-                y = op(x).numpy()
-                good = bool(np.array_equal(y, spmv_fixed_vec(m, x, m.data)))
-                what = f"y == spmv_fixed_vec {good}"
-            else:
-                e = rel_err(to_np(op(x)), spmv_f64(m, x))
-                good = e <= TOL_BF16
-                what = f"y vs f64 {e:.3e} (gate {TOL_BF16})"
-            print(head + f"kernel==plain {ok}; {what}", flush=True)
-            check(ok and good, f"{fam[0]}: kernel==plain {ok}, {what}")
+        rec = spmv_family(fam, dev)
+        print_sweep({fam[0]: rec})
+        check(rec["ok"], f"{fam[0]}: {rec}")
+        if rec["tol"]["plain"] == 0.0:
             n_exact += 1
-            continue
-        y_k, y_p = op.renamed_y(acc_k), op.renamed_y(acc_p)
-        ref = spmv_f64(m, x)
-        e_kp = rel_err(y_k.cpu(), y_p.cpu())
-        e_k = rel_err(op.unpack_device(y_k).cpu(), ref)
-        e_p = rel_err(op.unpack_device(y_p).cpu(), ref)
-        worst = max(worst, e_kp)
-        print(head + f"kernel-vs-plain {e_kp:.3e}  kernel-vs-f64 {e_k:.3e}  "
-              f"plain-vs-f64 {e_p:.3e}", flush=True)
-        check(e_kp <= TOL_PLAIN, f"{fam[0]}: kernel vs plain {e_kp}")
-        check(e_k <= TOL_F64 and e_p <= TOL_F64,
-              f"{fam[0]}: vs spmv_f64 {e_k} / {e_p}")
+        else:
+            worst = max(worst, rec["err_plain"])
     return {"worst_family_rel_err": worst,
             "bit_equal_value_type_families": n_exact}
 
@@ -629,7 +625,7 @@ def phase_serving(dev, kernels):
           f" of it", flush=True)
     record = {"max_abs_err": max_abs, "ms": ms_k, "plain_ms": ms_p, **b,
               "library_ms": ms_cs, "ms_host_enqueue_in": ms_k_host,
-              "forward_ms": ms_fwd,
+              "forward_ms": ms_fwd, "pack_s": t2 - t1,
               "instantiation": instantiation(kernels, "wavepack_spmv", op)}
     # the fold on googleplus's renamed y, and natural order fixed run to
     # run: forward, masked over 10% of the columns, matmul at F = 4
@@ -643,7 +639,7 @@ def phase_serving(dev, kernels):
         np.float32)).to(dev)
     rec_fold["natural_order_comparisons"] = natural_order_checks(
         "googleplus", op, xs, active, X)
-    return m, record, rec_fold, launches
+    return m, op, record, rec_fold, launches
 
 
 def phase_kernel_families(dev) -> tuple:
@@ -718,8 +714,8 @@ def masked_operands(op, x_packed, active):
 def phase_semiring_families(dev) -> dict:
     """Phase 5, semirings and the masked kernel: on the min_plus and
     max_times families the SpMV kernel bit for bit against its plain
-    version and within TOL_F64 of the float64 oracle, SpMM at F = 5 bit for
-    bit; on every fp32 family in each semiring its config allows, the
+    version and within TOL_F64 of the float64 oracle
+    (``utils/parity.spmv_family``), SpMM at F = 5 bit for bit; on every fp32 family in each semiring its config allows, the
     masked kernel bit for bit against its plain version with
     MASKED_ACTIVE active columns, and masked == full; a NaN in x in the
     same places through kernels and plain versions.  Returns the worst
@@ -731,34 +727,25 @@ def phase_semiring_families(dev) -> dict:
         spmv_tiles_plain, wavepack_spmm, wavepack_spmv, wavepack_spmv_masked)
     from hisparse_tpu_torch.utils.bench import (
         FP32_FAMILIES, MULTIBLOCK_FAMILY, PLUS_TIMES_FAMILIES,
-        SEMIRING_FAMILIES, family_case, family_inputs, semiring_f64,
-        sparse_x)
+        SEMIRING_FAMILIES, family_case, family_inputs, sparse_x)
+    from hisparse_tpu_torch.utils.parity import print_sweep, spmv_family
     worst_f64, n_exact = 0.0, 0
     for fam in SEMIRING_FAMILIES:
-        m, wp, x = family_case(fam)
-        sr = wp.config.semiring
+        rec = spmv_family(fam, dev)
+        print_sweep({fam[0]: rec})
+        check(rec["ok"], f"{fam[0]}: {rec}")
+        _, wp, _ = family_case(fam)
         op = SpmvOperator(wp, device=dev)
-        x_dev = torch.from_numpy(x).to(dev)
-        args = op.stream_args(x_dev)
-        ok_k = exact(wavepack_spmv(*args, op.cfg),
-                     spmv_tiles_plain(*args, op.cfg))
-        y = to_np(op(x_dev))
-        ref = semiring_f64(m, x, sr)
-        fin = np.isfinite(ref)
-        e = rel_err(y[fin], ref[fin])
-        same_inf = bool((np.isfinite(y) == fin).all())
         X = torch.from_numpy(np.random.default_rng(5).random(
             (wp.num_cols, 5)).astype(np.float32)).to(dev)
         sargs = (op.vals, op.idxT, op.tile_part, op.class_map, op.run_start,
                  op.run_end, build_xt_multi(X, op.cfg, wp.n_parts), op.cfg)
         ok_m = exact(wavepack_spmm(*sargs, F=5),
                      spmm_tiles_plain(*sargs, F=5))
-        print(f"family {fam[0]:22s} spmv kernel==plain {ok_k}, vs f64 "
-              f"{e:.3e} (same infinite rows {same_inf}); spmm F=5 "
-              f"kernel==plain {ok_m}", flush=True)
-        check(ok_k and ok_m, f"{fam[0]}: kernel vs plain not bit-equal")
-        check(e <= TOL_F64 and same_inf, f"{fam[0]}: vs f64 {e}")
-        worst_f64 = max(worst_f64, e)
+        print(f"family {fam[0]:22s} spmm F=5 kernel==plain {ok_m}",
+              flush=True)
+        check(ok_m, f"{fam[0]}: spmm kernel vs plain not bit-equal")
+        worst_f64 = max(worst_f64, rec["err_f64"])
         n_exact += 2
     # the masked kernel on every fp32 family, in each semiring, and on the
     # bf16 family (plus_times only)
@@ -2043,6 +2030,169 @@ def phase_mesh(dev, kernels, m_gplus, gcn_ctx, apps, fixed):
         "idle_share": {k: p["idle_share"] for k, p in profiles.items()}}
 
 
+def phase_tooling(dev, kernels, m, op, rec_single, smi):
+    """Phase 11: googleplus through pack_hybrid and HybridSpmv beside the
+    single pack ``op`` of phase 4 (whose record is ``rec_single``),
+    measure_spmv, device_profile and the parity sweep;
+    returns the launches of the hybrid forward and the hybrid's
+    record."""
+    import torch
+    from hisparse_tpu_torch import SpmvConfig
+    from hisparse_tpu_torch.formats.wavepack import pack_hybrid
+    from hisparse_tpu_torch.ops.golden import spmv_f64
+    from hisparse_tpu_torch.ops.spmv import (HybridSpmv, spmv_tiles_plain,
+                                             wavepack_spmv)
+    from hisparse_tpu_torch.utils.bench import (device_hbm_gbps,
+                                               device_time_ms, measure_spmv,
+                                               measured_peak_gbps)
+    from hisparse_tpu_torch.utils.parity import (parity_sweep, print_sweep,
+                                                write_record)
+    from hisparse_tpu_torch.utils.tracing import device_profile
+    t0 = time.perf_counter()
+    wb, wt = pack_hybrid(m, SpmvConfig(**GOOGLEPLUS_CFG), **HYBRID_PACK)
+    t_pack = time.perf_counter() - t0
+    for tag, wp in (("bulk", wb), ("tail", wt)):
+        print(f"hybrid {tag}: tiles {wp.num_tiles}, blocks {wp.n_blocks}, "
+              f"parts {wp.n_parts}, nnz {wp.nnz}, fill {wp.fill:.4f}, "
+              f"stream {wp.stream_bytes / 1e6:.1f} MB", flush=True)
+    hyb = HybridSpmv(wb, wt, device=dev)
+    # the tail's leftovers sum their duplicate entries: fewer nnz, the
+    # same matrix (y is held against spmv_f64 of m below)
+    print(f"hybrid: pack_hybrid {t_pack:.1f} s on the host; nnz {hyb.nnz} "
+          f"of the matrix's {m.nnz}; {wb.num_tiles + wt.num_tiles} tiles, "
+          f"fill {hyb.fill:.4f}, "
+          f"stream {hyb.stream_bytes / 1e6:.1f} MB; single pack (phase 4, "
+          f"{rec_single['pack_s']:.1f} s): {op.wp.num_tiles} tiles, fill "
+          f"{op.wp.fill:.4f}, stream {op.wp.stream_bytes / 1e6:.1f} MB",
+          flush=True)
+    x_np = np.random.default_rng(0).random(m.num_cols).astype(np.float32)
+    x = torch.from_numpy(x_np).to(dev)
+    torch.cuda.synchronize()
+
+    reset_counts(kernels)
+    y = hyb(x)
+    torch.cuda.synchronize()
+    launches = counts(kernels)
+    check(launches["wavepack_spmv"] == 2 and launches["row_fold"] == 1,
+          f"the hybrid forward's launches {launches}")
+    y_np = to_np(y)
+    check(y_np.shape == (m.num_rows,) and bool(np.isfinite(y_np).all()),
+          f"hybrid y has shape {y_np.shape} or is not finite")
+    err = rel_err(y_np, spmv_f64(m, x_np))
+    print(f"hybrid: y vs spmv_f64 {err:.3e} (gate {TOL_F64}); launches "
+          f"{launches}", flush=True)
+    check(err <= TOL_F64, f"hybrid y vs spmv_f64 {err}")
+
+    # each launch against its plain version on the same operands
+    runs, max_abs, outs = [], 0.0, []
+    for tag, o in (("bulk", hyb.bulk), ("tail", hyb.tail)):
+        args = o.stream_args(x if o.col_order is None else x[o.col_order])
+        acc_k = wavepack_spmv(*args, o.cfg)
+        acc_p = spmv_tiles_plain(*args, o.cfg)
+        y_k, y_p = o.renamed_y(acc_k), o.renamed_y(acc_p)
+        d = float((y_k - y_p).abs().max())
+        e_kp = rel_err(y_k.cpu(), y_p.cpu())
+        print(f"hybrid {tag} launch: kernel vs plain max|dy| {d:.3e}, "
+              f"relative {e_kp:.3e} (gate {TOL_PLAIN})", flush=True)
+        check(e_kp <= TOL_PLAIN, f"hybrid {tag} kernel vs plain {e_kp}")
+        max_abs = max(max_abs, d)
+        runs.append((tag, o, args))
+        outs.append(acc_k)
+    b = bound(sum(nbytes(*args) for _, _, args in runs) + nbytes(*outs),
+              2.0 * sum(args[0].numel() for _, _, args in runs))
+    del outs
+
+    # natural y: the same bits run to run and on the CPU's plain versions
+    same_run = exact(y, hyb(x))
+    t0 = time.perf_counter()
+    y_cpu = HybridSpmv(wb, wt, device="cpu")(torch.from_numpy(x_np))
+    t_cpu = time.perf_counter() - t0
+    same_cpu = exact(y.cpu(), y_cpu)
+    print(f"hybrid: natural y bit-equal run to run {same_run}, to the CPU "
+          f"HybridSpmv {same_cpu} ({t_cpu:.1f} s on the CPU)", flush=True)
+    check(same_run and same_cpu, "hybrid natural y not fixed")
+
+    # times: each launch alone, then single and hybrid in turns
+    ms_launch = {tag: device_time_ms(
+        lambda a=args, c=o.cfg: wavepack_spmv(*a, c), reps=50, queued=True)
+        for tag, o, args in runs}
+    args_s = op.stream_args(x[op.col_order])
+
+    def k_single():
+        wavepack_spmv(*args_s, op.cfg)
+
+    def k_hybrid():
+        for _, o, args in runs:
+            wavepack_spmv(*args, o.cfg)
+
+    turns = {"single": [], "hybrid": []}
+    for which in ("single", "hybrid", "hybrid", "single"):
+        k, f = ((k_single, op) if which == "single" else (k_hybrid, hyb))
+        turns[which].append((
+            device_time_ms(k, reps=50, queued=True),
+            device_time_ms(lambda f=f: f(x), reps=50)))
+    ms_p = device_time_ms(lambda: [spmv_tiles_plain(*args, o.cfg)
+                                   for _, o, args in runs], reps=3, warmup=1)
+    print(f"time hybrid launches: bulk {ms_launch['bulk']:.4f} ms, tail "
+          f"{ms_launch['tail']:.4f} ms; plain (both) {ms_p:.4f} ms; bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
+    for which in ("single", "hybrid"):
+        (k1, f1), (k2, f2) = turns[which]
+        print(f"time googleplus {which:6s} kernel(s) {k1:.4f} / {k2:.4f} ms,"
+              f" forward {f1:.4f} / {f2:.4f} ms (turns single, hybrid, "
+              f"hybrid, single)", flush=True)
+    print(f"time googleplus single pack in phase 4: kernel "
+          f"{rec_single['ms']:.4f} ms, forward {rec_single['forward_ms']:.4f}"
+          f" ms; cuSPARSE {rec_single['library_ms']:.4f} ms; {smi}",
+          flush=True)
+    ms_k = float(np.mean([t[0] for t in turns["hybrid"]]))
+    ms_fwd = float(np.mean([t[1] for t in turns["hybrid"]]))
+
+    # the reference's benchmark rows, the card's data-sheet and measured
+    # HBM rates
+    for name, o, nnz, sb, pre, fill in (
+            ("googleplus single", op, m.nnz, op.wp.stream_bytes,
+             rec_single["pack_s"], op.wp.fill),
+            ("googleplus hybrid", hyb, hyb.nnz, hyb.stream_bytes, t_pack,
+             hyb.fill)):
+        print("measure_spmv " + measure_spmv(name, o, x, nnz, sb, pre,
+                                             fill).row(), flush=True)
+    hbm, peak = device_hbm_gbps(), measured_peak_gbps()
+    print(f"device_hbm_gbps {hbm:.1f} GB/s (data sheet); measured_peak_gbps "
+          f"{peak:.1f} GB/s ({peak / hbm:.3f} of it); {smi}", flush=True)
+    check(0.3 * hbm <= peak <= 1.05 * hbm, f"measured peak {peak} GB/s")
+
+    # a device trace of three hybrid forwards
+    with device_profile(OUT_DIR, device="cuda") as prof:
+        for _ in range(3):
+            hyb(x)
+    with open(prof.trace_path) as fh:
+        events = json.load(fh)["traceEvents"]
+    kern = [e for e in events if e.get("cat") == "kernel"
+            and "wavepack_kernel" in e.get("name", "")]
+    print(f"device_profile: {prof.trace_path.rsplit('/', 3)[-3:]}, "
+          f"{len(events)} events, {len(kern)} wavepack kernel events "
+          f"({kern[0]['name'][:80] if kern else None})", flush=True)
+    check(len(kern) >= 1, "the trace holds no wavepack kernel event")
+
+    fams = parity_sweep("cuda")
+    print_sweep(fams)
+    path = write_record(fams, OUT_DIR)
+    bad = [k for k, r in fams.items() if not r["ok"]]
+    print(f"parity: {len(fams) - len(bad)} of {len(fams)} families ok -> "
+          f"{path.rsplit('/', 3)[-3:]}", flush=True)
+    check(not bad, f"parity families not ok: {bad}")
+    return launches, {
+        "max_abs_err": max_abs, "ms": ms_k, "plain_ms": ms_p, **b,
+        "library_ms": rec_single["library_ms"], "forward_ms": ms_fwd,
+        "launch_ms": ms_launch, "turns_ms": turns, "pack_s": t_pack,
+        "tiles": [wb.num_tiles, wt.num_tiles], "fill": hyb.fill,
+        "stream_mb": hyb.stream_bytes / 1e6, "rel_err_f64": err,
+        "measured_peak_gbps": peak, "hbm_gbps": hbm,
+        "trace_wavepack_events": len(kern),
+        "parity": {k: r["ok"] for k, r in fams.items()}}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -2095,7 +2245,7 @@ def main() -> None:
 
     fams = phase_families(dev)
     done(3)
-    m, rec_spmv, rec_fold, l_serve = phase_serving(dev, _kernels)
+    m, op_gplus, rec_spmv, rec_fold, l_serve = phase_serving(dev, _kernels)
     done(4)
     worst_g, worst_s = phase_kernel_families(dev)
     semiring = phase_semiring_families(dev)
@@ -2113,19 +2263,25 @@ def main() -> None:
     l_mesh, rec_mesh = phase_mesh(dev, _kernels, m, gcn_ctx, apps_ctx,
                                   fixed_ctx)
     done(10)
-    del m, gcn_ctx, apps_ctx
+    del gcn_ctx, apps_ctx
     print("mesh: " + json.dumps(rec_mesh), flush=True)
+    l_hybrid, rec_hybrid = phase_tooling(dev, _kernels, m, op_gplus,
+                                         rec_spmv, smi)
+    done(11)
+    del m, op_gplus
 
     paths = {"serving": l_serve, "training": l_train, "gcn": l_gcn,
-             "apps": l_apps, "dispatch": l_dispatch, "mesh": l_mesh}
+             "apps": l_apps, "dispatch": l_dispatch, "mesh": l_mesh,
+             "hybrid": l_hybrid}
     src = "hisparse_tpu_torch/csrc/"
     ref = "hisparse_tpu/ops/spmv.py"
     # the SpMV kernel's max_abs_err covers googleplus, the training packs
     # and the apps' packs (bit-equal there)
     rec_spmv = dict(rec_spmv, max_abs_err=max(
         rec_spmv["max_abs_err"], rec_train_spmv["max_abs_err"],
-        rec_apps["max_abs_err"]), training=rec_train_spmv, apps=rec_apps,
-        dispatch=rec_rows)
+        rec_apps["max_abs_err"], rec_hybrid["max_abs_err"]),
+        training=rec_train_spmv, apps=rec_apps, dispatch=rec_rows,
+        hybrid=rec_hybrid)
     # each kernel's source and every TPU kernel body it replaces
     rows = [
         ("wavepack_spmv", "wavepack_spmv.cu", f"{ref}:258, {ref}:295",
@@ -2155,7 +2311,7 @@ def main() -> None:
             launches_by_path={k: p[name] for k, p in paths.items()},
             **rec, **extra)
         record["kernels"].append(entry)
-    print(f"chip_smoke: phases 1-10 in {time.perf_counter() - t_start:.1f} s",
+    print(f"chip_smoke: phases 1-11 in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,11 @@ training paths (``DiffSpmv``, ``StreamDiffSpmv``, ``DiffSpmm``, ``GCN``),
 the graph apps (``PageRank``, ``SSSP``, ``BFS``) and the format dispatch
 (``choose_format`` between wavepack, ``BcsrOperator`` and
 ``DenseOperator`` / ``SpmmOperator``, on the perf model and rates
-measured on the card) for an NVIDIA H100.  The host layers are copies of
+measured on the card) for an NVIDIA H100, and the bulk + tail hybrid
+(``formats.wavepack.pack_hybrid``, ``ops.spmv.HybridSpmv``).  The tools
+are in ``utils``: CUDA-event timing and the reference's benchmark row
+(``bench``), phase logs and the device profiler (``tracing``), the
+allocator tuning (``hostmem``) and the chip parity sweep (``parity``).  The host layers are copies of
 the JAX package's (numpy and the native C++ scheduler); the TPU's Pallas
 kernels become CUDA C++ kernels (``csrc/wavepack_spmv.cu``, SpMV, SpMM
 and masked SpMV; ``csrc/wavepack_gradstream.cu``; ``csrc/bcsr.cu``).

@@ -2,9 +2,8 @@
 
 This module is a copy of ``hisparse_tpu/formats/wavepack.py``: the port
 reads the same bytes, and ``tests/test_torch_formats.py`` pins its
-``pack()`` byte-equal to the JAX package's.  ``pack_hybrid`` is not
-ported (the hybrid operator is not part of the port yet).  The format
-notes below speak of the TPU's lanes and sublanes; on the GPU they are
+``pack()`` and ``pack_hybrid()`` byte-equal to the JAX package's.  The
+format notes below speak of the TPU's lanes and sublanes; on the GPU they are
 plain array axes of the stream (see ``ops/spmv.py``).
 
 The reference turns SpMV into fully-sequential HBM streams with a custom
@@ -1133,3 +1132,69 @@ def _schedule_block_major(sigma, lam, bank, h, cls, cls2, bank2, R, S, CT,
         t = 1
     return t_of, s_of, lane_of, bsel_of, choice_of, np.stack(class_map)
 
+
+
+def pack_hybrid(m: CSRMatrix, cfg_bulk: SpmvConfig,
+                cfg_tail: SpmvConfig | None = None,
+                split_max: int | None | str = "auto",
+                stop_frac: float = 0.25,
+                col_order: np.ndarray | str | None = None):
+    """Two-phase packing: the block-major scheduler packs the bulk and
+    stops when tiles go thin (the coupon-collector tail of sparse stripes);
+    the leftovers repack through the select-chain path, which serves every
+    block per wave.  Both packs share the split, renaming and y geometry,
+    so y = y_bulk + y_tail elementwise in renamed space.
+
+    fp32 plus_times only (the elementwise merge is a plain add).  With
+    ``col_order="degree"`` each pack orders its own columns (the bulk by
+    the split matrix's degrees, the tail by the leftovers'), so each
+    operator permutes x by its own ``col_order``.
+    Returns (wp_bulk, wp_tail).
+    """
+    if not cfg_bulk.block_major:
+        raise ValueError("pack_hybrid needs a block-major bulk config")
+    if cfg_bulk.dtype != "fp32" or cfg_bulk.semiring != "plus_times":
+        raise ValueError("pack_hybrid supports fp32 plus_times only")
+    if cfg_tail is None:
+        cfg_tail = dataclasses.replace(
+            cfg_bulk, block_major=False,
+            bank_blocks=min(cfg_bulk.bank_blocks, 8),
+            two_choice=cfg_bulk.bank_blocks <= 8 and cfg_bulk.two_choice)
+    if (cfg_tail.sublanes != cfg_bulk.sublanes
+            or cfg_tail.stripes != cfg_bulk.stripes):
+        raise ValueError("bulk and tail must share sublanes/stripes "
+                         "(same y geometry)")
+    orig_rows = m.num_rows
+    if split_max == "auto":
+        mean = max(float(m.nnz) / max(m.num_rows, 1), 1.0)
+        split_max = max(8, 1 << int(np.ceil(np.log2(mean))))
+    if split_max is not None:
+        from .csr import split_rows
+        m2, row_map = split_rows(m, split_max)
+    else:
+        m2, row_map = m, np.arange(m.num_rows, dtype=np.int64)
+    row_order = argsort_rows_by_nnz(m2, descending=True)
+
+    lo_out: dict = {}
+    wp_bulk = pack(m2, cfg_bulk, row_order=row_order, col_order=col_order,
+                   _stop_frac=stop_frac, _leftover_out=lo_out)
+    left = lo_out.get("nz", np.zeros(0, np.int64))
+    rows_of_nz = np.repeat(np.arange(m2.num_rows), m2.row_nnz())
+    import scipy.sparse as sp
+    coo = sp.coo_matrix((m2.data[left],
+                         (rows_of_nz[left], m2.indices[left])),
+                        shape=(m2.num_rows, m2.num_cols))
+    m_tail = CSRMatrix.from_scipy(coo.tocsr())
+    wp_tail = pack(m_tail, cfg_tail, row_order=row_order,
+                   col_order=col_order)
+    # fix up both perms to map to ORIGINAL rows (pack applied row_map only
+    # when it did the splitting itself)
+    for wp in (wp_bulk, wp_tail):
+        p = wp.perm
+        wp.perm = np.where(p < m2.num_rows,
+                           row_map[np.minimum(p, m2.num_rows - 1)],
+                           orig_rows)
+        wp.num_rows = orig_rows
+    if not np.array_equal(wp_bulk.perm, wp_tail.perm):
+        raise ValueError("the bulk and tail packs renamed rows apart")
+    return wp_bulk, wp_tail

@@ -2,8 +2,9 @@
 ``hisparse_tpu/ops/spmv.py``'s main path (``SpmvOperator`` ->
 ``_spmv_call`` -> ``_stripe_fold`` -> ``unpack_device``), of its SpMM
 (``SpmvOperator.matmul`` -> ``_spmm_call``), of its masked SpMSpV analog
-(``SpmvOperator.masked`` -> ``_spmv_masked_call``) and of its gradient
-stream (``_gradstream_call``).
+(``SpmvOperator.masked`` -> ``_spmv_masked_call``), of its gradient
+stream (``_gradstream_call``) and of its bulk + tail pair
+(``HybridSpmv``).
 
 Per SpMV call, for a dense vector x:
 
@@ -948,3 +949,45 @@ def spmm(wp: Wavepack, X, device="cuda") -> torch.Tensor:
     """One-shot SpMM Y = A @ X (X: (num_cols, F)) from a packed matrix;
     see :meth:`SpmvOperator.matmul`."""
     return SpmvOperator(wp, device=device).matmul(X)
+
+
+class HybridSpmv(torch.nn.Module):
+    """Bulk (block-major) + tail (select-chain) operator pair sharing one
+    y geometry (the port of ``hisparse_tpu.ops.spmv.HybridSpmv``; see
+    ``formats.wavepack.pack_hybrid``): y = y_bulk + y_tail in renamed
+    space, folded once to natural order.
+
+    Each operator permutes natural x by its own pack's ``col_order``: with
+    ``col_order="degree"`` the two packs order their columns apart.  The
+    sum comes before the fold, so a hub row split across both packs
+    folds its partials in one fixed order (:meth:`SpmvOperator.fold`).
+    ``pack_hybrid`` refuses every algebra but fp32 plus_times, and so does
+    this operator."""
+
+    def __init__(self, wp_bulk: Wavepack, wp_tail: Wavepack, device="cuda"):
+        super().__init__()
+        cb, ct = wp_bulk.config, wp_tail.config
+        if (cb.sublanes != ct.sublanes or cb.stripes != ct.stripes
+                or wp_bulk.num_rows != wp_tail.num_rows
+                or not np.array_equal(wp_bulk.perm, wp_tail.perm)):
+            raise ValueError("the bulk and tail packs must share perm, "
+                             "num_rows, sublanes and stripes (one y "
+                             "geometry)")
+        if any(c.dtype != "fp32" or c.semiring != "plus_times"
+               for c in (cb, ct)):
+            raise ValueError("HybridSpmv supports fp32 plus_times only")
+        self.bulk = SpmvOperator(wp_bulk, device)
+        self.tail = SpmvOperator(wp_tail, device)
+        self.wp = wp_bulk
+        self.nnz = wp_bulk.nnz + wp_tail.nnz
+        self.stream_bytes = wp_bulk.stream_bytes + wp_tail.stream_bytes
+
+    @property
+    def fill(self) -> float:
+        slots = ((self.bulk.wp.num_tiles + self.tail.wp.num_tiles)
+                 * self.wp.config.tile_slots)
+        return self.nnz / max(slots, 1)
+
+    def forward(self, x, renamed: bool = False) -> torch.Tensor:
+        y = self.bulk(x, renamed=True) + self.tail(x, renamed=True)
+        return y if renamed else self.bulk.unpack_device(y)

@@ -27,7 +27,11 @@ and between two runs.  The mesh cases put four shards on one card
 (``hisparse_tpu_torch.parallel``) and hold them against the single-device
 results (min_plus, SSSP, BFS bit for bit; the GCN within 1e-5), the f64
 golden (1e-4) and the same module on a CPU mesh (1e-6; gradient streams,
-dL/dvals and Q8.24 words bit for bit).
+dL/dvals and Q8.24 words bit for bit).  ``HybridSpmv`` launches the SpMV
+kernel twice a forward, each launch within 1e-6 of its plain version, its
+natural y bit for bit the CPU operator's; ``measured_peak_gbps`` lies
+between 0.3 and 1.05 of the data sheet's rate, and a ``device_profile``
+trace holds the SpMV kernel's launch.
 """
 import itertools
 
@@ -1039,3 +1043,64 @@ def test_mesh_gcn_and_apps_on_cuda(cuda_device):
     _exact(ShardedSSSP(w, mesh).run(0), SSSP(w, device=cuda_device).run(0))
     assert torch.equal(ShardedBFS(w, mesh).run(0),
                        BFS(w, device=cuda_device).run(0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stop_frac", [0.25, 0.0])
+def test_hybrid_launches_match_plain_on_cuda(stop_frac, cuda_device):
+    """``HybridSpmv``: two SpMV launches a forward, each within 1e-6 of its
+    plain version; y within 1e-4 of f64; natural y bit-equal run to run and
+    to the CPU operator on the same packs.  ``stop_frac=0`` leaves the tail
+    one tile of padding, which the kernel runs too."""
+    from hisparse_tpu_torch import SpmvConfig, powerlaw_csr
+    from hisparse_tpu_torch.formats.wavepack import pack_hybrid
+    from hisparse_tpu_torch.ops.spmv import HybridSpmv
+    m = powerlaw_csr(4000, 60000, 16, alpha=1.2, seed=5)
+    cfg = SpmvConfig(sublanes=128, bank_blocks=4, stripes=128,
+                     block_major=True, classes_per_group=2, two_choice=True)
+    wb, wt = pack_hybrid(m, cfg, split_max=32, stop_frac=stop_frac,
+                         col_order="degree")
+    op = HybridSpmv(wb, wt, device=cuda_device)
+    x = np.random.default_rng(5).random(m.num_cols).astype(np.float32)
+    xd = torch.from_numpy(x).to(cuda_device)
+    before = (_kernels.launches, _kernels.fold_launches)
+    y = op(xd)
+    torch.cuda.synchronize()
+    assert (_kernels.launches, _kernels.fold_launches) == (
+        before[0] + 2, before[1] + 1)
+    for o in (op.bulk, op.tail):
+        args = o.stream_args(xd[o.col_order])
+        acc = wavepack_spmv(*args, o.cfg)
+        assert _err(o.renamed_y(acc),
+                    o.renamed_y(spmv_tiles_plain(*args, o.cfg))) <= 1e-6
+    assert _err(y, torch.from_numpy(spmv_f64(m, x))) <= 1e-4
+    _exact(y, op(xd))
+    _exact(y.cpu(), HybridSpmv(wb, wt, device="cpu")(torch.from_numpy(x)))
+
+
+@pytest.mark.cuda
+def test_measured_peak_gbps_on_cuda(cuda_device):
+    """The measured HBM read rate lies between 0.3 and 1.05 of the data
+    sheet's."""
+    from hisparse_tpu_torch.utils.bench import (device_hbm_gbps,
+                                               measured_peak_gbps)
+    hbm = device_hbm_gbps()
+    assert 0.3 * hbm <= measured_peak_gbps() <= 1.05 * hbm
+
+
+@pytest.mark.cuda
+def test_device_profile_traces_the_kernel_on_cuda(cuda_device, tmp_path):
+    """A ``device_profile`` trace of one forward holds the SpMV kernel's
+    launch (``wavepack_kernel<...>``) among its CUDA kernel events."""
+    import json
+    from hisparse_tpu_torch.utils.tracing import device_profile
+    _, wp, x = family_case(PLUS_TIMES_FAMILIES[0])
+    op = SpmvOperator(wp, device=cuda_device)
+    xd = torch.from_numpy(x).to(cuda_device)
+    op(xd)
+    with device_profile(str(tmp_path), device="cuda") as prof:
+        op(xd)
+    with open(prof.trace_path) as fh:
+        events = json.load(fh)["traceEvents"]
+    assert any(e.get("cat") == "kernel" and "wavepack_kernel" in e["name"]
+               for e in events)
