@@ -35,7 +35,10 @@ Phases, in order; any failure raises and exits non-zero:
      GB/s = bytes/t; the renamed -> natural fold kernel bit for bit
      against its plain version and Wavepack.unpack_y, timed beside its
      bound, its plain version and index_add_ over perm (the earlier
-     unpack, a yardstick only), and its longest hub row timed alone;
+     unpack, a yardstick only), and its longest hub row timed alone
+     beside the chain floor (the row's partials times one dependent fp32
+     add's clocks, csrc/row_fold.cu's timer run once, over the card's
+     clocks.max.sm);
   5. on the same families, the gradient-stream kernel against its plain
      version (max|d| <= 1e-6 of max|out|) and the SpMM kernel against its
      plain version at F = 1, 5 and 16 (max|d|/max|Y| <= 1e-6; the bf16
@@ -50,7 +53,12 @@ Phases, in order; any failure raises and exits non-zero:
      max_times families and the Q8.24 family here, googleplus in phase 4,
      the fixed row in phase 9): two forwards, two masked calls and two
      matmul calls (float packs) bit-equal to each other in natural order
-     and to Wavepack.unpack_y of the same call's renamed y;
+     and to Wavepack.unpack_y of the same call's renamed y; the fold
+     kernel on the hand-made edge plan (utils/bench.fold_edge_plan: ties
+     of signed zeros, two NaN payloads, infinities, a saturating Q8.24
+     hub row, rows of 32 and 33 partials) in every algebra at F = 1, 3,
+     16 and 20, both layouts, bit for bit against its plain version and
+     Wavepack.unpack_y;
   6. training at full size: the transformer-70 stand-in of the suite's
      training row (bench.py, diffspmv_tracking_row), uniform_sparse_csr(
      512, 33288, 9986, seed=70), at that row's configs: StreamDiffSpmv
@@ -73,8 +81,11 @@ Phases, in order; any failure raises and exits non-zero:
      1e-4 of a float64 scipy oracle, the cross-entropy falling over 3 SGD
      steps, the SpMM counter above 0; the SpMM kernel against its plain
      version on A-hat and A-hat^T at F = 8 and 16 (1e-6); one training
-     step is timed and profiled, the SpMM kernel timed at F = 16, and the
-     fold of A-hat's F = 16 renamed rows beside index_add_.
+     step is timed and profiled, the SpMM kernel timed at F = 16, the
+     fold of A-hat's F = 16 renamed rows in both layouts ((n, F), as the
+     natural-order matmul folds them, and (F, n)) beside index_add_, and
+     the natural-order matmul at F = 16 (SpMM, stripe fold, fold), its
+     output a contiguous (n, 16).
 
   8. the graph apps at the suite's sizes (bench.py:736-800): PageRank
      (20 iterations) and BFS (from vertex 0, dense and masked) on
@@ -117,8 +128,9 @@ Phases, in order; any failure raises and exits non-zero:
      (torch.sparse_bsr_tensor @ X, bf16), yardsticks only, and beside the
      dense arm on the same product (SpmmOperator bf16); the fixed row's
      kernel beside its bound, in GOPS, and its forward (the device fold,
-     one copy to the host); each dense pick's forward beside its bound and
-     the wavepack forward of the same matrix.
+     one copy to the host), and its Q8.24 fold against its plain version
+     and unpack_y; each dense pick's forward beside its bound and the
+     wavepack forward of the same matrix.
  10. the mesh on one card (``hisparse_tpu_torch.parallel``), four shards
      on ``cuda:0``: ShardedSpmv on googleplus at its design point (split_max 64, no
      column order) within 1e-4 of spmv_f64 and bit-equal run to run,
@@ -137,7 +149,10 @@ Phases, in order; any failure raises and exits non-zero:
      pagerank_reference, ShardedBFS and ShardedSSSP equal to phase 8's
      levels and distances; the SpMV, SpMM, gradient-stream
      and fold counters, zeroed before, above 0; one shard of each of
-     those kernels against its plain version; each shard's tiles; the
+     those kernels against its plain version; the min_plus hub-split
+     folds (SSSP-pokec's first shard on its distances, the 100k graph at
+     split 16) against their plain versions and unpack_y, timed beside
+     scatter_reduce_; each shard's tiles; the
      sharded forwards and steps timed beside one
      operator's on the same matrices, and two of them profiled.
  11. tooling and the hybrid: phase 4's googleplus matrix through
@@ -172,9 +187,12 @@ one PyTorch call computes the same function, that call's time
 gradient stream, for BCSR, CSR SpMM, and for the fold ``index_add_`` over
 perm, which sums in no fixed order; no PyTorch call computes a masked
 SpMV), and for the wavepack kernels the instantiation the measured shape
-launches (registers, shared memory, CTAs per SM); the last is
+launches (registers, shared memory, CTAs per SM); the fold's record also
+holds its chain floor (``chain_floor_ms``), both layouts at F = 16, the
+Q8.24 fixed row and the min_plus hub-split folds; the last is
 ``{"ok": true, "device": {...}}``.
 """
+import functools
 import json
 import os
 import resource
@@ -184,34 +202,25 @@ import time
 
 import numpy as np
 
-GOOGLEPLUS = dict(shape=(108000, 108000, 127.0, 1.2), seed=11)
-GOOGLEPLUS_CFG = dict(sublanes=512, bank_blocks=8, stripes=512,
-                      block_major=True, classes_per_group=2,
-                      steal_mantissa=True, idx16=True, two_choice=False)
-GOOGLEPLUS_PACK = dict(split_max=64, col_order="degree", bm_win=1, bm_adv=1)
-# bench.py:819-824
-T70 = dict(shape=(512, 33288, int(33288 * 0.30)), seed=70)
-T70_CFG = dict(sublanes=512, bank_blocks=1, stripes=4, steal_mantissa=True,
-               idx16=True, two_choice=False)
+# the full-size design points, shared with the A/B tools
+from hisparse_tpu_torch.utils.bench import (APPS_100K, BCSR16K, BCSR_RHS,
+                                            GCN_DIMS, GOOGLEPLUS,
+                                            GOOGLEPLUS_CFG, GOOGLEPLUS_PACK,
+                                            POKEC, T70, T70_CFG)
+
 T70_CFG_T = dict(T70_CFG, stripes=512)
 T70_STEPS, T70_LR = 5, 5e-5
-GCN_DIMS, GCN_STEPS, GCN_LR = [64, 16, 8], 3, 0.5
-# the app rows of the suite (bench.py:736-800): PageRank and BFS on the
-# 100k power-law graph, SSSP on the pokec-shape R-MAT stand-in
-APPS_100K = dict(shape=(100000, 100000, 10), alpha=1.3, seed=2)
-POKEC = dict(shape=(1632000, 1632000, 19), seed=6)
-PR_ITERS = 20
+GCN_STEPS, GCN_LR = 3, 0.5
+PR_ITERS = 20                 # PageRank's iterations on APPS_100K
 MASKED_ACTIVE = 40            # active columns of the phase-5 masked cases
 # the dispatch rows (bench.py:533-537, :677-679, :897-921): the pruned-NN
 # suite, the fixed-point row at its tuned point (bench_tuned.json) and the
-# block-structured SpMM row with 64 right-hand sides
+# block-structured SpMM row (BCSR16K, BCSR_RHS)
 TRANSFORMER_PCTS = (50, 60, 70, 80, 90, 95)
 FIXED_ROW = dict(shape=(60000, 60000, 16), seed=1)
 FIXED_CFG = dict(sublanes=512, bank_blocks=4, stripes=512, dtype="fixed",
                  block_major=True, classes_per_group=2, two_choice=True)
 FIXED_PACK = dict(split_max=16, col_order="degree", bm_win=1, bm_adv=1)
-BCSR16K = dict(shape=(16384, 16384), block_rows=24, seed=7)
-BCSR_RHS = 64
 TOL_PLAIN = 1e-6
 TOL_F64 = 1e-4
 # phase 10: four shards on one card; the sharded GCN and PageRank against
@@ -273,7 +282,7 @@ def print_registers(counts: dict) -> None:
                       r"ELb(\d)E", sym)
         other = next((k for k in ("wavepack_gradstream_kernel",
                                   "bcsr_bf16_kernel", "bcsr_f32_kernel",
-                                  "row_fold_kernel")
+                                  "row_fold_kernel", "fadd_latency_kernel")
                       if k in sym), sym)
         key = (f"wavepack_kernel {'bf16' if m[1] == 't' else '32-bit'} "
                f"kF={m[2]} {names[m[3]]}"
@@ -409,67 +418,177 @@ def to_np(t) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
-def fold_bound(y, idx, ptr, long_rows, out) -> dict:
-    """The fold's bound: y, the plan and the output each moved once, one
-    operation a partial and feature."""
-    F = y.shape[0] if y.dim() == 2 else 1
+def fold_bound(y, idx, ptr, long_rows, out, F: int) -> dict:
+    """The fold's bound, in either layout ((n, F) or (F, n)): y, the plan
+    and the output each moved once, one operation a partial and
+    feature."""
     return bound(nbytes(y, idx, ptr, long_rows, out), float(F * idx.numel()))
 
 
+@functools.lru_cache(maxsize=None)
+def chain_clock() -> dict:
+    """What the fold's chain floor is made of, measured once: the SM
+    clocks of one dependent fp32 add (``_kernels.fadd_latency_cycles``,
+    csrc/row_fold.cu's timer) and the card's maximum SM clock in MHz
+    (``nvidia-smi --query-gpu=clocks.max.sm``)."""
+    from hisparse_tpu_torch.ops import _kernels
+    cycles = _kernels.fadd_latency_cycles()
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.splitlines()[0])
+    print(f"fold chain: one dependent fp32 add {cycles:.3f} SM clocks; "
+          f"clocks.max.sm {mhz:.0f} MHz", flush=True)
+    return {"fadd_cycles": cycles, "sm_max_mhz": mhz}
+
+
+def chain_floor_ms(longest: int, alg: str) -> float:
+    """The least time the longest plus_times row can take: its partials
+    times one dependent add's latency over the SM clock (``chain_clock``);
+    0 for the algebras the fold takes as a tree."""
+    if alg != "plus_times":
+        return 0.0
+    c = chain_clock()
+    return longest * c["fadd_cycles"] / (c["sm_max_mhz"] * 1e3)
+
+
 def fold_record(what, op, y_ren, dev) -> dict:
-    """The fold kernel on ``op``'s renamed y (``(n,)`` or ``(F, n)``): bit
-    for bit against its plain version and ``Wavepack.unpack_y``, timed
-    beside its bound, its plain version and ``index_add_`` over perm (the
-    earlier unpack, in no fixed order), and its longest row's range timed
-    alone (one warp walking it)."""
+    """The fold kernel on ``op``'s renamed y, ``(n,)`` or ``(n, F)`` (and
+    then also its ``(F, n)`` copy): each layout bit for bit against the
+    plain version and ``Wavepack.unpack_y``, and timed beside its bound
+    and a PyTorch call over perm in no fixed order (``index_add_``, or
+    ``scatter_reduce_`` for min and max; none for Q8.24's saturating sum);
+    the plain version timed on the first layout, its longest row's range
+    timed alone (one warp walking it) beside ``chain_floor_ms``."""
     import torch
-    from hisparse_tpu_torch.ops.spmv import (FOLD_THREAD_MAX, row_fold,
-                                             row_fold_plain)
+    from hisparse_tpu_torch.ops.spmv import (FOLD_THREAD_MAX, algebra,
+                                             row_fold, row_fold_plain)
     from hisparse_tpu_torch.utils.bench import device_time_ms
-    alg = op.cfg.semiring
+    alg = algebra(op.cfg)
     plan = (op.fold_idx, op.fold_ptr, op.fold_long)
-    out_k = row_fold(y_ren, *plan, alg)
-    out_p = row_fold_plain(y_ren, op.fold_idx, op.fold_ptr, alg)
-    ys = y_ren.reshape(-1, y_ren.shape[-1]).cpu().numpy()
-    ref = torch.from_numpy(np.stack([op.wp.unpack_y(v) for v in ys])).to(
-        dev).reshape(out_k.shape)
-    ok = exact(out_k, out_p) and exact(out_k, ref)
-    check(ok, f"{what}: fold kernel vs plain / unpack_y not bit-equal")
     n = op.wp.num_rows
-    ms_k = device_time_ms(lambda: row_fold(y_ren, *plan, alg), reps=50,
-                          queued=True)
-    ms_p = device_time_ms(lambda: row_fold_plain(y_ren, op.fold_idx,
-                                                 op.fold_ptr, alg),
-                          reps=3, warmup=1)
-    lead = y_ren.shape[:-1]
+    F = 1 if y_ren.dim() == 1 else y_ren.shape[1]
+    layouts = {"(n,)": (y_ren, -1)} if F == 1 else {
+        "(n, F)": (y_ren, 0), "(F, n)": (y_ren.T.contiguous(), -1)}
+    ys = y_ren.reshape(y_ren.shape[0], -1).cpu().numpy()
+    if alg == "fixed":
+        ys = ys.view(np.uint32)
+    ref = np.stack([op.wp.unpack_y(np.ascontiguousarray(ys[:, f]))
+                    for f in range(F)], 1)
+    ref = torch.from_numpy(ref.view(np.int32) if alg == "fixed" else ref)
+    ref = ref.to(dev).reshape((n, F) if F > 1 else (n,))
+    perm = op.perm
+    reduce = {"min_plus": "amin", "max_times": "amax"}.get(alg)
+    rec = {"layouts": {}}
+    for name, (y, dim) in layouts.items():
+        out_k = row_fold(y, *plan, alg, dim)
+        out_p = row_fold_plain(y, op.fold_idx, op.fold_ptr, alg, dim)
+        want = ref if dim == 0 or F == 1 else ref.T
+        ok = exact(out_k, out_p) and exact(out_k, want)
+        check(ok, f"{what} {name}: fold kernel vs plain / unpack_y not "
+              "bit-equal")
+        d = 0 if dim == 0 else y.dim() - 1
+        ms_k = device_time_ms(lambda: row_fold(y, *plan, alg, dim), reps=50,
+                              queued=True)
+        if alg == "fixed":
+            ms_lib = None
+        else:
+            shape = list(y.shape)
+            shape[d] = n + 1
 
-    def index_add():
-        return torch.zeros(lead + (n + 1,), device=dev).index_add_(
-            -1, op.perm, y_ren)
+            def library():
+                z = torch.zeros(shape, device=dev)
+                if reduce is None:
+                    return z.index_add_(d, perm, y)
+                index = perm.view([-1 if i == d else 1
+                                   for i in range(y.dim())]).expand_as(y)
+                return z.scatter_reduce_(d, index, y, reduce,
+                                         include_self=False)
+            ms_lib = device_time_ms(library, reps=50, queued=True)
+        b = fold_bound(y, *plan, out_k, F)
+        rec["layouts"][name] = {"ms": ms_k, **b, "library_ms": ms_lib,
+                                "max_abs_err": max_abs_diff(out_k, out_p)}
+        if "ms" not in rec:
+            ms_p = device_time_ms(
+                lambda: row_fold_plain(y, op.fold_idx, op.fold_ptr, alg,
+                                       dim), reps=3, warmup=1)
+            lengths = (op.fold_ptr[1:] - op.fold_ptr[:-1]).cpu().numpy()
+            r = int(lengths.argmax())
+            L = int(lengths[r])
+            beg = int(op.fold_ptr[r])
+            one = (op.fold_idx[beg:beg + L].contiguous(),
+                   torch.tensor([0, L], dtype=torch.int32, device=dev),
+                   torch.tensor([0] if L > FOLD_THREAD_MAX else [],
+                                dtype=torch.int32, device=dev))
+            ms_long = device_time_ms(lambda: row_fold(y, *one, alg, dim),
+                                     reps=50, queued=True)
+            rec.update(max_abs_err=max_abs_diff(out_k, out_p), ms=ms_k,
+                       plain_ms=ms_p, **b, library_ms=ms_lib,
+                       longest_row_partials=L, longest_row_ms=ms_long,
+                       chain_floor_ms=chain_floor_ms(L, alg),
+                       partials=int(op.fold_idx.numel()),
+                       hub_rows=int(op.fold_long.numel()))
+        lib = "none" if ms_lib is None else f"{ms_lib:.4f} ms"
+        print(f"fold {what} {alg} {name}: {tuple(y.shape)} renamed -> {n} "
+              f"rows, {op.fold_idx.numel()} partials, "
+              f"{op.fold_long.numel()} hub rows of more than "
+              f"{FOLD_THREAD_MAX}; kernel == plain == unpack_y {ok}; kernel "
+              f"{ms_k:.4f} ms, bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}), {reduce or 'index_add_'} {lib}",
+              flush=True)
+    print(f"fold {what}: plain {rec['plain_ms']:.4f} ms; longest row "
+          f"{rec['longest_row_partials']} partials alone "
+          f"{rec['longest_row_ms']:.4f} ms, chain floor "
+          f"{rec['chain_floor_ms']:.4f} ms", flush=True)
+    return rec
 
-    ms_ia = device_time_ms(index_add, reps=50, queued=True)
-    lengths = (op.fold_ptr[1:] - op.fold_ptr[:-1]).cpu().numpy()
-    r = int(lengths.argmax())
-    L = int(lengths[r])
-    beg = int(op.fold_ptr[r])
-    one = (op.fold_idx[beg:beg + L].contiguous(),
-           torch.tensor([0, L], dtype=torch.int32, device=dev),
-           torch.tensor([0] if L > FOLD_THREAD_MAX else [],
-                        dtype=torch.int32, device=dev))
-    ms_long = device_time_ms(lambda: row_fold(y_ren, *one, alg), reps=50,
-                             queued=True)
-    b = fold_bound(y_ren, *plan, out_k)
-    print(f"fold {what}: {tuple(y_ren.shape)} renamed -> {n} rows, "
-          f"{op.fold_idx.numel()} partials, {op.fold_long.numel()} hub rows "
-          f"of more than {FOLD_THREAD_MAX}; kernel == plain == unpack_y {ok};"
-          f" kernel {ms_k:.4f} ms, bound {b['bound_ms']:.4f} ms "
-          f"({b['bound_by']}), plain {ms_p:.4f} ms, index_add_ {ms_ia:.4f} "
-          f"ms; longest row {L} partials alone {ms_long:.4f} ms", flush=True)
-    return {"max_abs_err": max_abs_diff(out_k, out_p), "ms": ms_k,
-            "plain_ms": ms_p, **b, "library_ms": ms_ia,
-            "longest_row_partials": L, "longest_row_ms": ms_long,
-            "partials": int(op.fold_idx.numel()),
-            "hub_rows": int(op.fold_long.numel())}
+
+def fold_edge_checks(dev) -> int:
+    """The fold kernel on the hand-made edge plan
+    (``utils/bench.fold_edge_plan``) in every algebra, F = 1, 3, 16 and
+    20, both layouts: bit for bit against its plain version and
+    ``Wavepack.unpack_y`` (NaN payloads too for min and max, which select
+    a partial); returns the comparisons made."""
+    import types
+
+    import torch
+    from hisparse_tpu_torch import SpmvConfig
+    from hisparse_tpu_torch.formats.wavepack import Wavepack
+    from hisparse_tpu_torch.ops.spmv import (fold_plan, row_fold,
+                                             row_fold_plain)
+    from hisparse_tpu_torch.utils.bench import (fold_edge_plan,
+                                               fold_edge_values)
+    perm, n = fold_edge_plan()
+    plan = [torch.from_numpy(a).to(dev) for a in fold_plan(perm, n)]
+    n_cmp = 0
+    for alg in ("plus_times", "min_plus", "max_times", "fixed"):
+        cfg = SpmvConfig(dtype="fixed") if alg == "fixed" else SpmvConfig(
+            semiring=alg)
+        pk = types.SimpleNamespace(perm=perm, num_rows=n, config=cfg)
+        for F in (1, 3, 16, 20):
+            Y = fold_edge_values(alg, perm, F)
+            ref = np.stack([Wavepack.unpack_y(pk, Y[:, f])
+                            for f in range(F)], 1)
+            words = Y.view(np.int32) if alg == "fixed" else Y
+            y = torch.from_numpy(words).to(dev)
+            ref = torch.from_numpy(ref.view(words.dtype)).to(dev)
+            for y_in, dim, want in ((y, 0, ref),
+                                    (y.T.contiguous(), -1, ref.T)):
+                out = row_fold(y_in, *plan, alg, dim)
+                plain = row_fold_plain(y_in, *plan[:2], alg, dim)
+                if alg == "plus_times":
+                    ok = exact(out, plain) and exact(out, want)
+                else:
+                    ok = torch.equal(out.view(torch.int32),
+                                     plain.view(torch.int32)) and \
+                        torch.equal(out.view(torch.int32),
+                                    want.contiguous().view(torch.int32))
+                check(ok, f"fold edge plan {alg} F={F} dim={dim}: kernel "
+                      "vs plain / unpack_y not bit-equal")
+                n_cmp += 2
+    print(f"fold edge plan: {n_cmp} comparisons bit for bit (4 algebras, "
+          "F = 1, 3, 16, 20, both layouts)", flush=True)
+    return n_cmp
 
 
 def natural_order_checks(what, op, x, active=None, X=None) -> int:
@@ -816,7 +935,8 @@ def phase_semiring_families(dev) -> dict:
     n_nat += natural_order_checks(fam[0], SpmvOperator(wp, device=dev), x)
     return {"worst_semiring_rel_err_f64": worst_f64,
             "bit_equal_comparisons": n_exact,
-            "natural_order_comparisons": n_nat}
+            "natural_order_comparisons": n_nat,
+            "fold_edge_comparisons": fold_edge_checks(dev)}
 
 
 def grad_step(sd, x, y_t, spmv_fn, gradstream_fn, r=None):
@@ -1135,10 +1255,22 @@ def phase_gcn(dev, kernels, m):
           f"{ms_k:.4f} ms, plain {ms_p:.4f} ms, cuSPARSE csr @ X {ms_cs:.4f}"
           f" ms; bound {b_s['bound_ms']:.4f} ms ({b_s['bound_by']}) (max|d| "
           f"over the four {max_abs:.3e})", flush=True)
-    # the fold of A-hat's 16 renamed feature rows, as the aggregation's
-    # natural-order output takes it
-    rec_fold = fold_record("gcn A-hat F=16", gcn.agg.op,
-                           gcn.agg.op.matmul(H16, renamed=True), dev)
+    # the fold of A-hat's 16 renamed feature rows in both layouts: (n, F)
+    # as the aggregation's natural-order matmul folds them (its renamed
+    # output is that buffer's transposed view); and the natural-order
+    # matmul itself (SpMM, stripe fold, fold)
+    op_a = gcn.agg.op
+    rec_fold = fold_record("gcn A-hat F=16", op_a,
+                           op_a.matmul(H16, renamed=True).T, dev)
+    Y16 = op_a.matmul(H16)
+    check(Y16.shape == (n, 16) and Y16.is_contiguous(),
+          f"matmul gave {tuple(Y16.shape)}, contiguous "
+          f"{Y16.is_contiguous()}")
+    rec_fold["matmul_natural_ms"] = device_time_ms(lambda: op_a.matmul(H16),
+                                                   reps=20)
+    rec_fold["gcn_step_ms"] = prof["ms"]
+    print(f"time gcn A-hat matmul F=16, natural order (SpMM, stripe fold, "
+          f"fold) {rec_fold['matmul_natural_ms']:.4f} ms", flush=True)
     return {"max_abs_err": max_abs, "ms": ms_k, "plain_ms": ms_p, **b_s,
             "library_ms": ms_cs, "gcn_step_ms": prof["ms"],
             "step_idle_share": prof["idle_share"],
@@ -1570,6 +1702,8 @@ def phase_dispatch(dev, kernels, m_gplus):
           flush=True)
     check(ok_f and ok_fk, f"fixed row: y {ok_f}, kernel vs plain {ok_fk}")
     n_nat = natural_order_checks("fixed row", op_f, x_f)
+    rec_fold_f = fold_record("fixed row", op_f,
+                             op_f(x_f, renamed=True).view(torch.int32), dev)
 
     # bcsr-spmm-16k against float64 and the plain version
     check(Y.shape == (m_b.num_rows, BCSR_RHS) and bool(
@@ -1708,7 +1842,8 @@ def phase_dispatch(dev, kernels, m_gplus):
                 "fixed_row_plain_ms": ms_fp, "fixed_row_forward_ms": ms_ff,
                 "fixed_row_bound_ms": b_f["bound_ms"],
                 "fixed_row_gops": gops(m_f.nnz, ms_fk), "dense": rows,
-                "fixed_row_natural_order_comparisons": n_nat}
+                "fixed_row_natural_order_comparisons": n_nat,
+                "fold_fixed_row": rec_fold_f}
     return rec_bcsr, rec_rows, launches, (m_f, x_f)
 
 
@@ -1976,6 +2111,19 @@ def phase_mesh(dev, kernels, m_gplus, gcn_ctx, apps, fixed):
           and ok_fold, f"mesh kernels vs plain: spmv {e_spmv}, spmm "
           f"{e_spmm}, gradient stream {ok_grad}, fold {ok_fold}")
 
+    # the min_plus hub-split folds: SSSP-pokec's first shard on phase 8's
+    # distances, and the 100k graph's single-device pack (split 16)
+    op_s = sss.st.ops[0]
+    d_all = torch.from_numpy(dist).to(dev)
+    xr = torch.from_numpy(np.random.default_rng(41).random(
+        g.num_cols).astype(np.float32)).to(dev)
+    fold_min = {
+        "sssp_pokec_shard0": fold_record(
+            "sssp-pokec shard 0", op_s,
+            op_s(d_all[:sss.st.num_cols], renamed=True), dev),
+        "graph100k_split16": fold_record("min_plus 100k split 16", op_t,
+                                         op_t(xr, renamed=True), dev)}
+
     # times: the sharded steps beside the single-device ones on the same
     # matrices (CUDA events, the host's enqueue included)
     op_one = SpmvOperator(pack(m_gplus, cfg_g, split_max=split_g), dev)
@@ -2027,7 +2175,8 @@ def phase_mesh(dev, kernels, m_gplus, gcn_ctx, apps, fixed):
         "gcn_rel_err": e_g, "transformer70_losses": losses,
         "diffspmv_rel_err": [e_dy, e_dxb],
         "times_ms": times, "tiles": tiles,
-        "idle_share": {k: p["idle_share"] for k, p in profiles.items()}}
+        "idle_share": {k: p["idle_share"] for k, p in profiles.items()},
+        "fold_min_plus": fold_min}
 
 
 def phase_tooling(dev, kernels, m, op, rec_single, smi):
@@ -2249,6 +2398,7 @@ def main() -> None:
     done(4)
     worst_g, worst_s = phase_kernel_families(dev)
     semiring = phase_semiring_families(dev)
+    fold_edge = semiring.pop("fold_edge_comparisons")
     done(5)
     rec_grad, rec_train_spmv, l_train = phase_training(dev, _kernels)
     done(6)
@@ -2259,11 +2409,13 @@ def main() -> None:
     done(8)
     rec_bcsr, rec_rows, l_dispatch, fixed_ctx = phase_dispatch(
         dev, _kernels, m)
+    fold_fixed = rec_rows.pop("fold_fixed_row")
     done(9)
     l_mesh, rec_mesh = phase_mesh(dev, _kernels, m, gcn_ctx, apps_ctx,
                                   fixed_ctx)
     done(10)
     del gcn_ctx, apps_ctx
+    fold_min = rec_mesh.pop("fold_min_plus")
     print("mesh: " + json.dumps(rec_mesh), flush=True)
     l_hybrid, rec_hybrid = phase_tooling(dev, _kernels, m, op_gplus,
                                          rec_spmv, smi)
@@ -2296,7 +2448,9 @@ def main() -> None:
         ("row_fold", "row_fold.cu",
          "hisparse_tpu/formats/wavepack.py:133 (Wavepack.unpack_y, host "
          "numpy; no pallas_call)", rec_fold,
-         {"gcn_f16": rec_fold_gcn,
+         {"gcn_f16": rec_fold_gcn, "fixed_row": fold_fixed,
+          "min_plus_hub": fold_min,
+          "edge_plan_comparisons": fold_edge,
           "natural_order_comparisons": rec_fold.pop(
               "natural_order_comparisons")
           + semiring["natural_order_comparisons"]

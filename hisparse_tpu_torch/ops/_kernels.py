@@ -58,11 +58,13 @@ _ENTRY = {
     "bcsr": ("bcsr", "bcsr_spmm_launch",
              [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "row_fold": ("row_fold", "row_fold_launch",
-                 [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+                 [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
 }
 KERNELS = tuple(_ENTRY)
 # wavepack_spmv.cu's report on the instantiation an entry point launches
 _INFO = ("wavepack_spmv", "wavepack_kernel_info", [_I] * 9 + [_P])
+# row_fold.cu's dependent-add timer (the fold's chain floor)
+_FADD = ("row_fold", "fadd_latency_launch", [_P, _P, _I, ctypes.c_float, _P])
 INFO_FIELDS = ("registers", "static_smem", "dynamic_smem", "local_bytes",
                "ctas_per_sm", "stages", "threads")
 # the wavepack kernels' semiring and value-type arguments
@@ -178,9 +180,11 @@ def load() -> dict:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             fns[name] = fn
-        info = getattr(libs[_INFO[0]], _INFO[1])
-        info.argtypes, info.restype = _INFO[2], ctypes.c_int
-        fns["kernel_info"] = info
+        for key, (lib, entry, argtypes) in (("kernel_info", _INFO),
+                                            ("fadd_latency", _FADD)):
+            fn = getattr(libs[lib], entry)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            fns[key] = fn
         _fns = fns
         return fns
 
@@ -303,18 +307,33 @@ def launch_bcsr(blocks, brow_ptr, bcol, x, out) -> None:
 
 
 def launch_row_fold(y, idx, ptr, long_rows, out, *, alg: str,
-                    thread_max: int) -> None:
+                    thread_max: int, inner: bool) -> None:
     """Launch the fold kernel on the current stream (checked by
-    ops/spmv.py:row_fold): y (n_renamed,) or (F, n_renamed), out (n_rows,)
-    or (F, n_rows), float32 or Q8.24 words in int32; idx, ptr (n_rows +
-    1,) and long_rows int32 (ops/spmv.py:fold_plan), long_rows the rows
-    of more than ``thread_max`` partials."""
+    ops/spmv.py:row_fold): ``inner`` y (n_renamed, F) and out (n_rows, F),
+    else y (n_renamed,) or (F, n_renamed) and out (n_rows,) or (F,
+    n_rows); float32 or Q8.24 words in int32; idx, ptr (n_rows + 1,) and
+    long_rows int32 (ops/spmv.py:fold_plan), long_rows the rows of more
+    than ``thread_max`` partials."""
     global fold_launches
-    F = y.shape[0] if y.dim() == 2 else 1
+    if y.dim() == 1:
+        F, n_ren = 1, y.shape[0]
+    else:
+        n_ren, F = y.shape if inner else y.shape[::-1]
     rc = load()["row_fold"](
         y.data_ptr(), idx.data_ptr(), ptr.data_ptr(), _ptr(long_rows)
         if long_rows.numel() else None, out.data_ptr(), ptr.shape[0] - 1,
-        long_rows.shape[0], y.shape[-1], F, thread_max, FOLD_ALGEBRAS[alg],
-        _stream(y))
+        long_rows.shape[0], n_ren, F, int(inner), thread_max,
+        FOLD_ALGEBRAS[alg], _stream(y))
     _check("row_fold", rc)
     fold_launches += 1
+
+
+def fadd_latency_cycles(n: int = 1 << 16) -> float:
+    """SM clocks of one dependent fp32 add on this card: ``n`` adds in a
+    chain on one thread (``csrc/row_fold.cu``), timed with the SM's clock.
+    Not a kernel of any path: the fold's chain floor reads it."""
+    cycles = torch.zeros(1, dtype=torch.int64, device="cuda")
+    sink = torch.zeros(1, dtype=torch.float32, device="cuda")
+    _check("fadd_latency", load()["fadd_latency"](
+        cycles.data_ptr(), sink.data_ptr(), n, 1.0, _stream(cycles)))
+    return int(cycles.item()) / n

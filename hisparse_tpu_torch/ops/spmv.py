@@ -33,7 +33,9 @@ do.
 
 SpMM runs the same steps for up to 16 feature columns at a time
 (``build_xt_multi``, whose XT keeps a slot's features innermost, and
-``wavepack_spmm`` / ``spmm_tiles_plain``).  The masked
+``wavepack_spmm`` / ``spmm_tiles_plain``); its stripe fold writes renamed
+y as (n_renamed, F), features innermost, and the fold reads that layout
+into a contiguous (num_rows, F).  The masked
 call (``wavepack_spmv_masked`` / ``spmv_masked_tiles_plain``) walks only
 the tiles ``SpmvOperator.active_tiles`` selects: those whose partition, or
 whose block-major (partition, class) pairs, can touch an active column.
@@ -589,14 +591,31 @@ def wavepack_spmm(vals, idxT, tile_part, cmap, run_start, run_end, xt,
     return out
 
 
-def stripe_fold(acc: torch.Tensor, cfg: SpmvConfig,
-                n_blocks: int) -> torch.Tensor:
+def stripe_fold(acc: torch.Tensor, cfg: SpmvConfig, n_blocks: int,
+                out: torch.Tensor | None = None) -> torch.Tensor:
     """(n_blocks*S, 128) accumulator -> (n_blocks, R, 128) rows: the S/R
     sublanes of stripe sigma fold into row sigma (PE output stage), by
     sum, min or max as the semiring adds; a Q8.24 pack by the saturating
     sum ``fixed_sat_sum``, which for nonnegative terms is min(sum,
-    FIX_MAX) in any order."""
+    FIX_MAX) in any order.
+
+    Given ``out``, a (n_blocks*R*128, F) view (renamed rows, features
+    innermost; float packs), ``acc`` is the SpMM's (F, n_blocks*S, 128)
+    and the fold of a permuted view of it is written into ``out``, whose
+    strides a reduction keeps; returns ``out``."""
     S, R = cfg.sublanes, cfg.stripes
+    if out is not None:
+        check_float(cfg, "a features-innermost stripe fold")
+        F = acc.shape[0]
+        rows = acc.reshape(F, n_blocks, S // R, R, LANES).movedim(0, -1)
+        reduce = {"min_plus": torch.amin, "max_times": torch.amax}.get(
+            cfg.semiring, torch.sum)
+        dst = out.view(n_blocks, R, LANES, F)
+        got = reduce(rows, dim=1, out=dst)
+        if got.data_ptr() != dst.data_ptr() or got.stride() != dst.stride():
+            raise RuntimeError("stripe_fold: the reduction did not write "
+                               "into out's layout")
+        return out
     rows = acc.reshape(n_blocks, S // R, R, LANES)
     if cfg.dtype == "fixed":
         return _to_words(torch.clamp_max(_u32(rows).sum(dim=1), FIX_MAX))
@@ -614,7 +633,8 @@ def fold_plan(perm, num_rows: int):
     natural row, as ``(idx, ptr, long_rows)``, int32 arrays.  Row r's
     partials are ``idx[ptr[r]:ptr[r+1]]``, in ascending renamed order;
     ``long_rows`` are the rows of more than ``FOLD_THREAD_MAX`` partials,
-    which the kernel gives a warp each."""
+    which the kernel gives a warp each, longest first (ties by row), so
+    the longest chains start first in its grid."""
     perm = np.asarray(perm)
     if perm.size >= 1 << 31:
         raise ValueError("the fold takes fewer than 2^31 renamed rows")
@@ -623,7 +643,9 @@ def fold_plan(perm, num_rows: int):
     idx = valid[np.argsort(rows, kind="stable")].astype(np.int32)
     ptr = np.zeros(num_rows + 1, np.int64)
     np.cumsum(np.bincount(rows, minlength=num_rows), out=ptr[1:])
-    long_rows = np.flatnonzero(np.diff(ptr) > FOLD_THREAD_MAX)
+    lengths = np.diff(ptr)
+    long_rows = np.flatnonzero(lengths > FOLD_THREAD_MAX)
+    long_rows = long_rows[np.argsort(-lengths[long_rows], kind="stable")]
     return idx, ptr.astype(np.int32), long_rows.astype(np.int32)
 
 
@@ -640,14 +662,28 @@ def fold_add(acc, t, alg: str):
     return acc + t
 
 
-def row_fold_plain(y, idx, ptr, alg: str) -> torch.Tensor:
-    """Plain PyTorch version of the fold kernel: ``out[..., r]`` = the
-    ``alg`` fold (:func:`fold_add`) of ``y[..., idx[j]]`` for j from
-    ``ptr[r]`` to ``ptr[r+1] - 1`` in ascending order, from the identity;
-    max_times then clamps at 0 (``np.maximum(out, 0)``, empty rows 0), a
-    Q8.24 sum (``alg == "fixed"``, int32-carried words) at ``FIX_MAX``.
-    ``y`` is (n_renamed,) or (F, n_renamed); returns (n_rows,) or (F,
-    n_rows), float32 or Q8.24 words in int32."""
+def _renamed_dim(y, dim: int) -> int:
+    """0 for a (n_renamed, F) y (``dim`` 0 of a 2-D y), else -1: the
+    renamed rows last, (n_renamed,) or (F, n_renamed)."""
+    if y.dim() not in (1, 2) or dim not in (0, -1, y.dim() - 1, -y.dim()):
+        raise ValueError(f"row_fold: y must be (n,), (F, n) or (n, F) with "
+                         f"dim its renamed axis, got {tuple(y.shape)}, "
+                         f"dim={dim}")
+    return 0 if y.dim() == 2 and dim in (0, -2) else -1
+
+
+def row_fold_plain(y, idx, ptr, alg: str, dim: int = -1) -> torch.Tensor:
+    """Plain PyTorch version of the fold kernel: natural row r = the
+    ``alg`` fold (:func:`fold_add`) of the renamed rows ``idx[j]`` of y
+    for j from ``ptr[r]`` to ``ptr[r+1] - 1`` in ascending order, from the
+    identity; max_times then clamps at 0 (``np.maximum(out, 0)``, empty
+    rows 0), a Q8.24 sum (``alg == "fixed"``, int32-carried words) at
+    ``FIX_MAX``.  ``dim`` is y's renamed axis: y (n_renamed,) or (F,
+    n_renamed) gives (n_rows,) or (F, n_rows); ``dim=0``, y (n_renamed,
+    F), gives (n_rows, F), contiguous.  Float32 or Q8.24 words in
+    int32."""
+    if _renamed_dim(y, dim) == 0:
+        return row_fold_plain(y.T, idx, ptr, alg).T.contiguous()
     n = ptr.shape[0] - 1
     starts = ptr[:-1].long()
     lengths = ptr[1:].long() - starts
@@ -671,29 +707,34 @@ def row_fold_plain(y, idx, ptr, alg: str) -> torch.Tensor:
     return acc
 
 
-def row_fold(y, idx, ptr, long_rows, alg: str) -> torch.Tensor:
+def row_fold(y, idx, ptr, long_rows, alg: str, dim: int = -1) -> torch.Tensor:
     """Renamed -> natural rows: the fold of :func:`row_fold_plain`, the
-    same bits, with ``(idx, ptr, long_rows)`` from :func:`fold_plan`.
+    same bits, with ``(idx, ptr, long_rows)`` from :func:`fold_plan` and
+    ``dim`` y's renamed axis: (n_renamed, F) with ``dim=0`` gives a
+    contiguous (n_rows, F), (n_renamed,) or (F, n_renamed) gives (n_rows,)
+    or (F, n_rows).
 
     On CUDA tensors this launches ``csrc/row_fold.cu``; on CPU tensors it
     runs :func:`row_fold_plain`.  The kernel trusts the plan to index y;
     this wrapper checks device, dtype, shape and contiguity."""
+    inner = _renamed_dim(y, dim) == 0
     if _device_of("row_fold", y) == "cpu":
-        return row_fold_plain(y, idx, ptr, alg)
+        return row_fold_plain(y, idx, ptr, alg, dim)
     dtype = torch.int32 if alg == "fixed" else torch.float32
-    if y.dim() not in (1, 2) or y.dtype != dtype or not y.is_contiguous():
-        raise ValueError(f"row_fold: y must be a contiguous (n,) or (F, n) "
-                         f"{dtype} tensor, got {tuple(y.shape)} {y.dtype}")
+    if y.dtype != dtype or not y.is_contiguous():
+        raise ValueError(f"row_fold: y must be a contiguous {dtype} tensor, "
+                         f"got {tuple(y.shape)} {y.dtype}")
     for t in (idx, ptr, long_rows):
         if (t.device != y.device or t.dtype != torch.int32 or t.dim() != 1
                 or not t.is_contiguous()):
             raise ValueError("row_fold: idx, ptr and long_rows must be "
                              "contiguous 1-D int32 tensors on y's device")
     n = ptr.shape[0] - 1
-    out = torch.empty(y.shape[:-1] + (n,), dtype=dtype, device=y.device)
+    shape = (n, y.shape[1]) if inner else y.shape[:-1] + (n,)
+    out = torch.empty(shape, dtype=dtype, device=y.device)
     if out.numel():
         _kernels.launch_row_fold(y, idx, ptr, long_rows, out, alg=alg,
-                                 thread_max=FOLD_THREAD_MAX)
+                                 thread_max=FOLD_THREAD_MAX, inner=inner)
     return out
 
 
@@ -785,30 +826,34 @@ class SpmvOperator(torch.nn.Module):
         """Accumulator -> y in packed (renamed) row order."""
         return stripe_fold(acc, self.cfg, self.wp.n_blocks).reshape(-1)
 
-    def unpack_device(self, y_renamed: torch.Tensor) -> torch.Tensor:
+    def unpack_device(self, y_renamed: torch.Tensor,
+                      dim: int = -1) -> torch.Tensor:
         """Renamed -> natural-row-order y on the device: each row's
         hub-split partials fold in ascending renamed order from the
         semiring's identity (:func:`row_fold`), so the result has the
         same bits every run and on every device, those of
         ``Wavepack.unpack_y``; padding rows are dropped.  max_times rows
         with no term come out at 0, not -inf (``max(out, 0)``, the JAX
-        package's clamp).  A (F, renamed) input gives (F, num_rows).
-        Q8.24 packs raise ``ValueError``, as the JAX package's
+        package's clamp).  A (F, renamed) input gives (F, num_rows); a
+        (renamed, F) input with ``dim=0`` gives a contiguous (num_rows,
+        F).  Q8.24 packs raise ``ValueError``, as the JAX package's
         ``unpack_device`` does; their ``forward`` folds with
         :meth:`fold`."""
         if self.cfg.dtype == "fixed":
             raise ValueError("fixed-point recombine saturates; use "
                              "wp.unpack_y on host")
-        return self.fold(y_renamed)
+        return self.fold(y_renamed, dim)
 
-    def fold(self, y_renamed: torch.Tensor) -> torch.Tensor:
+    def fold(self, y_renamed: torch.Tensor, dim: int = -1) -> torch.Tensor:
         """The fold of :meth:`unpack_device` in the pack's algebra, Q8.24
-        (int32-carried words, a sum clamped at ``FIX_MAX``) included."""
-        if y_renamed.shape[-1] != self.perm.shape[0]:
-            raise ValueError(f"y has {y_renamed.shape[-1]} renamed rows, "
+        (int32-carried words, a sum clamped at ``FIX_MAX``) included;
+        ``dim`` is the renamed axis of y."""
+        dim = _renamed_dim(y_renamed, dim)
+        if y_renamed.shape[dim] != self.perm.shape[0]:
+            raise ValueError(f"y has {y_renamed.shape[dim]} renamed rows, "
                              f"the pack {self.perm.shape[0]}")
         return row_fold(y_renamed.contiguous(), self.fold_idx, self.fold_ptr,
-                        self.fold_long, algebra(self.cfg))
+                        self.fold_long, algebra(self.cfg), dim)
 
     def _x(self, x) -> torch.Tensor:
         if self.cfg.dtype == "fixed":
@@ -913,10 +958,14 @@ class SpmvOperator(torch.nn.Module):
 
     def matmul(self, X, renamed: bool = False) -> torch.Tensor:
         """Multi-vector SpMM ``Y = A @ X`` through the packed stream
-        (X: (num_cols, F) features, natural column order; returns
-        (num_rows, F), or (F, renamed rows) with ``renamed=True``).  Each
-        launch takes up to ``SPMM_MAX_F`` features and streams the matrix
-        once for all of them.  Q8.24 packs raise ``ValueError``."""
+        (X: (num_cols, F) features, natural column order; returns a
+        contiguous (num_rows, F), or (F, renamed rows) with
+        ``renamed=True``, a transposed view of the (renamed rows, F)
+        buffer).  Each launch takes up to ``SPMM_MAX_F`` features and
+        streams the matrix once for all of them; its stripe fold writes
+        them into their columns of one (renamed rows, F) buffer, which the
+        fold reads a partial's row of features at a time.  Q8.24 packs
+        raise ``ValueError``."""
         check_float(self.cfg, "matmul")
         X = torch.as_tensor(X, device=self.device)
         if X.dim() != 2 or X.shape[0] != self.wp.num_cols or X.shape[1] < 1:
@@ -925,7 +974,8 @@ class SpmvOperator(torch.nn.Module):
                              f"{tuple(X.shape)}")
         if self.col_order is not None:
             X = X[self.col_order]
-        outs = []
+        y_ren = torch.empty(self.perm.shape[0], X.shape[1],
+                            dtype=torch.float32, device=self.device)
         for f0 in range(0, X.shape[1], SPMM_MAX_F):
             Xc = X[:, f0:f0 + SPMM_MAX_F]
             fc = Xc.shape[1]
@@ -934,10 +984,9 @@ class SpmvOperator(torch.nn.Module):
                                 self.run_end,
                                 build_xt_multi(Xc, self.cfg, self.wp.n_parts),
                                 self.cfg, F=fc)
-            outs.append(stripe_fold(acc.reshape(-1, LANES), self.cfg,
-                                    fc * self.wp.n_blocks).reshape(fc, -1))
-        y_ren = torch.cat(outs)
-        return y_ren if renamed else self.unpack_device(y_ren).T
+            stripe_fold(acc, self.cfg, self.wp.n_blocks,
+                        out=y_ren[:, f0:f0 + fc])
+        return y_ren.T if renamed else self.unpack_device(y_ren, dim=0)
 
 
 def spmv(wp: Wavepack, x, device="cuda") -> torch.Tensor:

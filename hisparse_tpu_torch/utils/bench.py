@@ -16,8 +16,11 @@ GOPS = 2*nnz/t, GBPS = 8*nnz/t and stream GB/s = stream_bytes/t are the
 reference's definitions (sw/benchmark.cpp:312-314, quoted in BASELINE.md).
 
 Also the parity families that the tests and ``chip_smoke.py`` run the
-port on, a float64 oracle for the min_plus and max_times families, and
-sparse vectors for the masked call.
+port on, a float64 oracle for the min_plus and max_times families, sparse
+vectors for the masked call, the fold's hand-made edge plan
+(``fold_edge_plan`` / ``fold_edge_values``), and the full-size design
+points that ``chip_smoke.py`` and the A/B tools (``parent_ab``,
+``ring_sweep``, ``hostmem_ab``) share.
 """
 from __future__ import annotations
 
@@ -162,6 +165,82 @@ def sparse_x(num_cols: int, k: int, semiring: str, seed: int = 0):
                 np.float32)
     x[active] = rng.random(k) + 0.5
     return x, active
+
+
+# The full-size design points: the suite's googleplus stand-in at its
+# tuned point (bench.py:519, bench_tuned.json) and the GCN's widths on it;
+# the app rows' 100k power-law graph (bench.py:747) and pokec-shape R-MAT
+# stand-in (bench.py:736-800); the transformer-70 training matrix
+# (bench.py:819-824) and bcsr-spmm-16k with its right-hand sides
+# (bench.py:897-921).
+GOOGLEPLUS = dict(shape=(108000, 108000, 127.0, 1.2), seed=11)
+GOOGLEPLUS_CFG = dict(sublanes=512, bank_blocks=8, stripes=512,
+                      block_major=True, classes_per_group=2,
+                      steal_mantissa=True, idx16=True, two_choice=False)
+GOOGLEPLUS_PACK = dict(split_max=64, col_order="degree", bm_win=1, bm_adv=1)
+GCN_DIMS = (64, 16, 8)
+APPS_100K = dict(shape=(100000, 100000, 10), alpha=1.3, seed=2)
+POKEC = dict(shape=(1632000, 1632000, 19), seed=6)
+T70 = dict(shape=(512, 33288, int(33288 * 0.30)), seed=70)
+T70_CFG = dict(sublanes=512, bank_blocks=1, stripes=4, steal_mantissa=True,
+               idx16=True, two_choice=False)
+BCSR16K = dict(shape=(16384, 16384), block_rows=24, seed=7)
+BCSR_RHS = 64
+
+
+# natural rows of the fold's edge plan, by partials: hub rows of 70 and
+# 1,100 partials (the latter over several stages of a hub warp's ring),
+# rows of 33 and 32 (one more than the thread path takes, and its most:
+# ops/spmv.FOLD_THREAD_MAX), a hub row of 129, a short row, an empty one,
+# and rows of one or two
+FOLD_EDGE_COUNTS = (70, 33, 32, 5, 0, 129, 1, 2, 1, 1100)
+FOLD_EDGE_NANS = (0x7FC00001, 0xFFC00123)    # two NaN payloads, in order
+
+
+def fold_edge_plan(seed: int = 0):
+    """A renamed space holding ``FOLD_EDGE_COUNTS``'s partials and 9
+    padding rows in a shuffled order: (perm, num_rows), as a pack's."""
+    rows = np.repeat(np.arange(len(FOLD_EDGE_COUNTS)), FOLD_EDGE_COUNTS)
+    perm = np.r_[rows, np.full(9, len(FOLD_EDGE_COUNTS))]
+    return (np.random.default_rng(seed).permutation(perm),
+            len(FOLD_EDGE_COUNTS))
+
+
+def fold_edge_values(alg: str, perm, n_feat: int = 1, seed: int = 1):
+    """(n_renamed, n_feat) partials on ``fold_edge_plan``'s perm with the
+    algebra's edge cases in its hub rows: for min_plus and max_times, hub
+    rows 0, 1 and 9 whose extreme is a tie of -0 and +0 (the last +0 in
+    rows 0 and 9, -0 in row 1; row 9's ties in different stages), with
+    infinities away from the extreme, and hub row 5 holding the opposite
+    infinity and the two NaNs of ``FOLD_EDGE_NANS`` (the first must win);
+    for Q8.24 (uint32), hub row 0 saturating and row 1 summing to 2^32 -
+    2; float32 otherwise."""
+    rng = np.random.default_rng(seed)
+    n = perm.size
+    if alg == "fixed":
+        y = rng.integers(0, 1 << 26, (n, n_feat), dtype=np.int64)
+        hub = perm == 0
+        y[hub] = rng.integers(1 << 31, 1 << 32, (int(hub.sum()), n_feat))
+        under = np.flatnonzero(perm == 1)
+        y[under] = 0
+        y[under[:2]] = ((1 << 32) - 2) >> 1
+        return y.astype(np.uint32)
+    y = rng.standard_normal((n, n_feat)).astype(np.float32)
+    sign = 1.0 if alg == "min_plus" else -1.0   # away from the extreme
+    ties = {0: ([1, 4, 9, 20], [-0.0, 0.0, -0.0, 0.0]),
+            1: ([1, 4, 9, 20], [0.0, -0.0, 0.0, -0.0]),
+            5: ([1, 4, 9, 20], [0.0] * 4),
+            9: ([10, 300, 700, 1050], [-0.0, 0.0, -0.0, 0.0])}
+    for r, (at, zeros) in ties.items():
+        pos = np.flatnonzero(perm == r)
+        y[pos] = sign * (np.abs(y[pos]) + 0.5)
+        y[pos[3::7]] = sign * np.inf
+        y[pos[at]] = np.array(zeros, np.float32)[:, None]
+    pos = np.flatnonzero(perm == 5)
+    y[pos[5::9]] = -sign * np.inf
+    y[pos[30]] = np.uint32(FOLD_EDGE_NANS[0]).view(np.float32)
+    y[pos[90]] = np.uint32(FOLD_EDGE_NANS[1]).view(np.float32)
+    return y
 
 
 def device_time_ms(fn: Callable[[], object], reps: int = 20,

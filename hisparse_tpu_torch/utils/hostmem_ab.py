@@ -28,7 +28,7 @@ import tempfile
 import time
 
 from ..formats.csr import powerlaw_csr, save_npz
-from .ring_sweep import GOOGLEPLUS, GOOGLEPLUS_CFG, GOOGLEPLUS_PACK
+from .bench import GOOGLEPLUS, GOOGLEPLUS_CFG, GOOGLEPLUS_PACK
 
 # a fresh process: tune the allocator or not, load the matrix, time the
 # pack; prints the seconds and the tiles
@@ -82,7 +82,7 @@ def compare(untuned: list, tuned: list) -> dict:
 def run(pairs: int) -> dict:
     """The A/B over ``pairs`` alternating pairs; returns its numbers."""
     t0 = time.perf_counter()
-    m = powerlaw_csr(*GOOGLEPLUS[0], seed=GOOGLEPLUS[1])
+    m = powerlaw_csr(*GOOGLEPLUS["shape"], seed=GOOGLEPLUS["seed"])
     print(f"hostmem_ab: googleplus {m.num_rows} x {m.num_cols}, nnz {m.nnz},"
           f" made in {time.perf_counter() - t0:.1f} s", flush=True)
     untuned, tuned = [], []

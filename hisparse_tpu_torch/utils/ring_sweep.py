@@ -40,19 +40,9 @@ from ..formats.wavepack import pack
 from ..models.apps import SSSP, PageRank
 from ..ops import _kernels
 from ..ops.spmv import SpmvOperator, _n_ops
-from .bench import device_time_ms
+from .bench import (APPS_100K, GOOGLEPLUS, GOOGLEPLUS_CFG, GOOGLEPLUS_PACK,
+                    POKEC, T70, T70_CFG, device_time_ms)
 
-# chip_smoke.py's shapes
-GOOGLEPLUS = ((108000, 108000, 127.0, 1.2), 11)
-GOOGLEPLUS_CFG = dict(sublanes=512, bank_blocks=8, stripes=512,
-                      block_major=True, classes_per_group=2,
-                      steal_mantissa=True, idx16=True, two_choice=False)
-GOOGLEPLUS_PACK = dict(split_max=64, col_order="degree", bm_win=1, bm_adv=1)
-APPS_100K = ((100000, 100000, 10), 1.3, 2)
-POKEC = ((1632000, 1632000, 19), 6)
-T70 = ((512, 33288, int(33288 * 0.30)), 70)
-T70_CFG = dict(sublanes=512, bank_blocks=1, stripes=4, steal_mantissa=True,
-               idx16=True, two_choice=False)
 # the instantiations timed: googleplus, plus_times chain (PageRank),
 # min_plus chain (pokec and its combine levels), its masked form, and
 # plus_times chain idx16 (transformer-70)
@@ -177,13 +167,12 @@ def shapes(dev) -> list:
     call."""
     g = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
-    m = powerlaw_csr(*GOOGLEPLUS[0], seed=GOOGLEPLUS[1])
+    m = powerlaw_csr(*GOOGLEPLUS["shape"], seed=GOOGLEPLUS["seed"])
     op = SpmvOperator(pack(m, SpmvConfig(**GOOGLEPLUS_CFG),
                            **GOOGLEPLUS_PACK), device=dev)
-    (n, nc, deg), alpha, seed = APPS_100K
-    pr = PageRank(powerlaw_csr(n, nc, deg, alpha=alpha, seed=seed),
-                  device=dev)
-    ss = SSSP(rmat_csr(*POKEC[0], seed=POKEC[1]), device=dev)
+    pr = PageRank(powerlaw_csr(*APPS_100K["shape"], alpha=APPS_100K["alpha"],
+                               seed=APPS_100K["seed"]), device=dev)
+    ss = SSSP(rmat_csr(*POKEC["shape"], seed=POKEC["seed"]), device=dev)
     print(f"shapes built in {time.perf_counter() - t0:.1f} s", flush=True)
 
     def x_of(o):
@@ -202,8 +191,8 @@ def shapes(dev) -> list:
                               ss.op.active_tiles(active))
     out.append(("pokec-masked", 3, margs[:2] + margs[3:], ss.op.cfg,
                 margs[2]))
-    t70 = SpmvOperator(pack(uniform_sparse_csr(*T70[0], seed=T70[1]),
-                            SpmvConfig(**T70_CFG), split_max=None),
+    m70 = uniform_sparse_csr(*T70["shape"], seed=T70["seed"])
+    t70 = SpmvOperator(pack(m70, SpmvConfig(**T70_CFG), split_max=None),
                        device=dev)
     out.append(("transformer-70 A", 4, x_of(t70), t70.cfg, None))
     for name, _, args, _, _ in out:

@@ -23,7 +23,9 @@ within 1e-5 of max|Y|, bf16 blocks on the tensor cores (whose fp32
 accumulation is not IEEE-ordered) within 1e-4.  The renamed -> natural
 fold adds each row's partials in one fixed order, so natural-order y is
 held bit for bit: against the plain fold, against ``Wavepack.unpack_y``
-and between two runs.  The mesh cases put four shards on one card
+and between two runs, in both its layouts ((F, renamed), and (renamed,
+F) with ``dim=0``, what ``matmul`` folds) and on the hand-made edge plan
+of ``utils/bench.fold_edge_plan`` (NaN payloads held for min and max).  The mesh cases put four shards on one card
 (``hisparse_tpu_torch.parallel``) and hold them against the single-device
 results (min_plus, SSSP, BFS bit for bit; the GCN within 1e-5), the f64
 golden (1e-4) and the same module on a CPU mesh (1e-6; gradient streams,
@@ -785,12 +787,63 @@ def test_natural_order_is_fixed_on_cuda(alg, cuda_device):
         np.testing.assert_array_equal(_words(a), _words(torch.from_numpy(
             ref)))
     Y1, Y2 = op.matmul(X), op.matmul(X)
+    assert Y1.shape == (wp.num_rows, 5) and Y1.is_contiguous()
     _exact(Y1, Y2)
     Y_ren = op.matmul(X, renamed=True).cpu().numpy()
     for f in range(5):
         np.testing.assert_array_equal(
             _words(Y1[:, f]), _words(torch.from_numpy(wp.unpack_y(Y_ren[f]))))
     assert _kernels.fold_launches == before + 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", (1, 3, 4, 16, 20, 33))
+@pytest.mark.parametrize("alg", FOLD_ALGEBRAS)
+def test_row_fold_edge_plan_on_cuda(alg, F, cuda_device):
+    """The fold kernel on the hand-made edge plan
+    (``utils/bench.fold_edge_plan``: hub rows of signed-zero ties,
+    infinities and two NaN payloads over several ring stages, a saturating
+    Q8.24 hub row, rows of 32 and 33 partials) bit for bit against its
+    plain version in both layouts: (renamed, F) with ``dim=0`` (16-byte
+    loads where F % 4 == 0, and scalar ones from an address 4 bytes off
+    16), and (F, renamed).  min_plus and max_times select a partial, so
+    their NaN payloads are held too; a sum's NaN payload is the
+    hardware's."""
+    from hisparse_tpu_torch.ops.spmv import fold_plan, row_fold, row_fold_plain
+    from hisparse_tpu_torch.utils.bench import fold_edge_plan, fold_edge_values
+    perm, n = fold_edge_plan()
+    plan = [torch.from_numpy(a).to(cuda_device)
+            for a in fold_plan(perm, n)]
+    Y = fold_edge_values(alg, perm, F)
+    y = torch.from_numpy(Y.view(np.int32) if alg == "fixed" else Y).to(
+        cuda_device)
+
+    def words(t):
+        if alg == "plus_times":
+            return _words(t)
+        return t.detach().cpu().contiguous().view(torch.int32).numpy()
+
+    plain = row_fold_plain(y, *plan[:2], alg, dim=0)
+    off = torch.empty(y.numel() + 1, dtype=y.dtype, device=cuda_device)
+    y_off = off[1:].view(y.shape)
+    y_off.copy_(y)
+    before = _kernels.fold_launches
+    for inp in (y, y_off):
+        out = row_fold(inp, *plan, alg, dim=0)
+        assert out.shape == (n, F) and out.is_contiguous()
+        np.testing.assert_array_equal(words(out), words(plain))
+    out = row_fold(y.T.contiguous(), *plan, alg)
+    torch.cuda.synchronize()
+    assert out.shape == (F, n)
+    np.testing.assert_array_equal(words(out), words(plain.T))
+    assert _kernels.fold_launches == before + 3
+
+
+@pytest.mark.cuda
+def test_fadd_latency_is_a_few_clocks(cuda_device):
+    """The dependent-add timer behind the fold's chain floor reads a few
+    SM clocks an add."""
+    assert 1.0 <= _kernels.fadd_latency_cycles() <= 32.0
 
 
 @pytest.mark.cuda

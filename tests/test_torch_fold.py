@@ -9,11 +9,19 @@ partials in ascending renamed order from the identity, as ``np.add.at``,
 comparisons are exact: same bits (NaNs in the same places), on packs
 whose hub rows are split into many partials, in plus_times, min_plus with
 +inf partials, max_times with empty rows (clamped to 0) and Q8.24 with
-rows whose sum saturates, for (renamed,) and (F, renamed) inputs.  The
-reference's pack is byte-equal to the port's (tests/test_torch_formats.py),
-so both ``unpack_y`` run on the same perm.
+rows whose sum saturates, for (renamed,), (F, renamed) and (renamed, F)
+inputs (``dim=0``, what ``SpmvOperator.matmul`` folds).  The reference's
+pack is byte-equal to the port's (tests/test_torch_formats.py), so both
+``unpack_y`` run on the same perm.  A hand-made plan
+(``utils/bench.fold_edge_plan``) holds the kernel's edge cases: hub rows
+with signed-zero ties, two NaNs of different payloads and infinities, a
+saturating Q8.24 hub row, and rows of exactly ``FOLD_THREAD_MAX`` and one
+more partials, where the thread path and the warp path meet; its
+unpack_y is each package's own method on the plan's perm.
 """
 import dataclasses
+import functools
+import types
 
 import numpy as np
 import pytest
@@ -25,6 +33,9 @@ from hisparse_tpu.ops import golden
 from hisparse_tpu_torch.ops import _kernels
 from hisparse_tpu_torch.ops.spmv import (FOLD_THREAD_MAX, fold_plan,
                                          row_fold, row_fold_plain)
+from hisparse_tpu_torch.utils.bench import (FOLD_EDGE_COUNTS,
+                                           FOLD_EDGE_NANS, fold_edge_plan,
+                                           fold_edge_values)
 
 # unpack_y's numpy folds warn of the NaN partials they propagate
 pytestmark = pytest.mark.filterwarnings(
@@ -51,6 +62,7 @@ def _config(alg):
         kw, semiring=alg)
 
 
+@functools.lru_cache(maxsize=None)
 def _packs(alg):
     """(the port's pack, the reference's) of the same matrix."""
     m, m_r = _matrix(hp), _matrix(ht)
@@ -91,13 +103,24 @@ def _bits(a):
     return a.view(np.uint32)
 
 
-def _fold(wp, y, alg):
-    """row_fold_plain of a numpy renamed y ((n,) or (F, n)) on wp's plan."""
+def _fold(wp, y, alg, dim=-1):
+    """row_fold_plain of a numpy renamed y ((n,), (F, n), or (n, F) with
+    ``dim=0``) on wp's plan."""
     idx, ptr, _ = (torch.from_numpy(a) for a in fold_plan(wp.perm,
                                                            wp.num_rows))
     t = torch.from_numpy(y.view(np.int32) if alg == "fixed" else y)
-    out = row_fold_plain(t, idx, ptr, alg).numpy()
+    out = row_fold_plain(t, idx, ptr, alg, dim)
+    assert out.is_contiguous()
+    out = out.numpy()
     return out.view(np.uint32) if alg == "fixed" else out
+
+
+def _unpack(lib, perm, num_rows, alg, y):
+    """``lib.Wavepack.unpack_y`` on a bare perm."""
+    kw = _config(alg)
+    pack = types.SimpleNamespace(perm=perm, num_rows=num_rows,
+                                 config=lib.SpmvConfig(**kw))
+    return lib.Wavepack.unpack_y(pack, y)
 
 
 @pytest.mark.parametrize("alg", ALGEBRAS)
@@ -136,7 +159,7 @@ def test_fold_of_features(alg):
 def test_fold_plan_orders_partials():
     """Each row's partials are its renamed positions in ascending order,
     every valid position once; long_rows lists the rows of more than
-    FOLD_THREAD_MAX partials."""
+    FOLD_THREAD_MAX partials, longest first (ties by row)."""
     wp, _ = _packs("plus_times")
     idx, ptr, long_rows = fold_plan(wp.perm, wp.num_rows)
     assert idx.dtype == ptr.dtype == long_rows.dtype == np.int32
@@ -145,8 +168,11 @@ def test_fold_plan_orders_partials():
     for r in range(wp.num_rows):
         part = idx[ptr[r]:ptr[r + 1]]
         np.testing.assert_array_equal(part, np.flatnonzero(wp.perm == r))
+    lengths = np.diff(ptr)
     np.testing.assert_array_equal(
-        long_rows, np.flatnonzero(np.diff(ptr) > FOLD_THREAD_MAX))
+        np.sort(long_rows), np.flatnonzero(lengths > FOLD_THREAD_MAX))
+    order = np.lexsort((long_rows, -lengths[long_rows]))
+    np.testing.assert_array_equal(order, np.arange(long_rows.size))
     assert long_rows.size > 0
 
 
@@ -196,3 +222,121 @@ def test_row_fold_takes_cpu_tensors_only_as_plain():
         _bits(row_fold_plain(y, *plan[:2], "plus_times").numpy()))
     with pytest.raises(ValueError):
         row_fold(y.to("meta"), *plan, "plus_times")
+
+
+@pytest.mark.parametrize("F", (1, 3, 16, 20))
+@pytest.mark.parametrize("alg", ALGEBRAS)
+def test_fold_features_innermost(alg, F):
+    """A (renamed, F) input with ``dim=0`` gives a contiguous (rows, F),
+    each column bit-equal to both packages' ``unpack_y`` of that feature
+    and to the (F, renamed) layout's fold; the CPU wrapper is the plain
+    version."""
+    wp, wr = _packs(alg)
+    Y = np.ascontiguousarray(np.stack(
+        [_renamed(alg, wp.perm.size, s) for s in range(10, 10 + F)], 1))
+    got = _fold(wp, Y, alg, dim=0)
+    assert got.shape == (wp.num_rows, F)
+    np.testing.assert_array_equal(
+        _bits(got), _bits(_fold(wp, np.ascontiguousarray(Y.T), alg).T))
+    for f in range(F):
+        np.testing.assert_array_equal(_bits(got[:, f]),
+                                      _bits(wp.unpack_y(Y[:, f])))
+        np.testing.assert_array_equal(_bits(got[:, f]),
+                                      _bits(wr.unpack_y(Y[:, f])))
+    plan = [torch.from_numpy(a) for a in fold_plan(wp.perm, wp.num_rows)]
+    t = torch.from_numpy(Y.view(np.int32) if alg == "fixed" else Y)
+    out = row_fold(t, *plan, alg, dim=0)
+    assert out.is_contiguous() and out.shape == (wp.num_rows, F)
+    np.testing.assert_array_equal(
+        _bits(out.numpy().view(np.uint32) if alg == "fixed"
+              else out.numpy()), _bits(got))
+
+
+@pytest.mark.parametrize("F", (1, 3))
+@pytest.mark.parametrize("alg", ALGEBRAS)
+def test_fold_edge_rows(alg, F):
+    """The hand-made plan: hub rows of signed-zero ties, infinities and two
+    NaN payloads (raw bits, the first NaN's kept), a saturating Q8.24 hub
+    row and one summing to just under 2^32, and the rows of exactly
+    FOLD_THREAD_MAX and one more partials, bit-equal to both packages'
+    ``unpack_y`` in both layouts."""
+    perm, n = fold_edge_plan()
+    idx, ptr, long_rows = fold_plan(perm, n)
+    counts = np.array(FOLD_EDGE_COUNTS)
+    np.testing.assert_array_equal(np.sort(long_rows),
+                                  np.flatnonzero(counts > FOLD_THREAD_MAX))
+    assert FOLD_THREAD_MAX in FOLD_EDGE_COUNTS
+    assert FOLD_THREAD_MAX + 1 in FOLD_EDGE_COUNTS
+    Y = fold_edge_values(alg, perm, F)
+    plan = [torch.from_numpy(idx), torch.from_numpy(ptr)]
+    t = torch.from_numpy(Y.view(np.int32) if alg == "fixed" else Y)
+    inner = row_fold_plain(t, *plan, alg, dim=0).numpy()
+    outer = row_fold_plain(t.T.contiguous(), *plan, alg).numpy()
+    np.testing.assert_array_equal(inner.view(np.uint32),
+                                  outer.T.view(np.uint32))
+    got = inner.view(np.uint32)
+    # a sum of NaNs has no fixed payload (hardware picks one); a min or
+    # max selects a partial, so its bits, NaN payloads included, are exact
+    bits = _bits if alg == "plus_times" else (
+        lambda a: np.asarray(a).view(np.uint32))
+    for f in range(F):
+        for lib in (hp, ht):
+            ref = _unpack(lib, perm, n, alg, Y[:, f])
+            np.testing.assert_array_equal(bits(inner[:, f]), bits(ref))
+    if alg == "fixed":
+        assert (got[0] == 0xFFFFFFFF).all()
+        assert (got[1] == 0xFFFFFFFE).all()
+    elif alg != "plus_times":
+        # the later zero of a tie (max_times clamps -0 to +0), the first
+        # NaN
+        assert (got[[0, 9]] == 0).all()
+        assert (got[1] == (0x80000000 if alg == "min_plus" else 0)).all()
+        assert (got[5] == FOLD_EDGE_NANS[0]).all()
+
+
+@pytest.mark.parametrize("alg", ("plus_times", "min_plus", "max_times"))
+def test_matmul_folds_features_innermost(alg):
+    """``matmul`` returns a contiguous (num_rows, F), F = 20 in two SpMM
+    launches: bit-equal to the fold of the (F, renamed) stripe folds each
+    launch gave before (the feature-major path), to ``unpack_y`` of its
+    own renamed output, and to both packages' ``unpack_y`` of the JAX
+    operator's renamed output where that is bit-equal to the port's."""
+    wp, wr = _packs(alg)
+    op = hp.SpmvOperator(wp, device="cpu")
+    X = np.random.default_rng(8).random((wp.num_cols, 20)).astype(
+        np.float32)
+    Y = op.matmul(torch.from_numpy(X))
+    assert Y.shape == (wp.num_rows, 20) and Y.is_contiguous()
+    Y_ren = op.matmul(torch.from_numpy(X), renamed=True)
+    assert Y_ren.shape == (20, wp.perm.size)
+    # the feature-major path: per launch, the stripe fold of the
+    # (F, n_blocks*S, 128) accumulator as (F, renamed), then one fold
+    from hisparse_tpu_torch.ops.spmv import (build_xt_multi, stripe_fold,
+                                             wavepack_spmm)
+    outs = []
+    for f0 in (0, 16):
+        Xc = torch.from_numpy(X[:, f0:f0 + 16])
+        acc = wavepack_spmm(op.vals, op.idxT, op.tile_part, op.class_map,
+                            op.run_start, op.run_end,
+                            build_xt_multi(Xc, op.cfg, wp.n_parts), op.cfg,
+                            F=Xc.shape[1])
+        outs.append(stripe_fold(acc.reshape(-1, 128), op.cfg,
+                                Xc.shape[1] * wp.n_blocks).reshape(
+                                    Xc.shape[1], -1))
+    old = torch.cat(outs)
+    np.testing.assert_array_equal(_bits(Y_ren.numpy()), _bits(old.numpy()))
+    np.testing.assert_array_equal(_bits(Y.numpy()),
+                                  _bits(op.unpack_device(old).T.numpy()))
+    ren = Y_ren.numpy()
+    for f in range(20):
+        np.testing.assert_array_equal(_bits(Y[:, f].numpy()),
+                                      _bits(wp.unpack_y(ren[f])))
+    if alg != "plus_times":
+        # min and max are exact: the JAX operator's renamed output is the
+        # port's, bit for bit, and so is its fold
+        op_r = ht.SpmvOperator(wr, interpret=True)
+        ren_r = np.asarray(op_r.matmul(X[:, :3], renamed=True))
+        np.testing.assert_array_equal(_bits(ren_r), _bits(ren[:3]))
+        for f in range(3):
+            np.testing.assert_array_equal(_bits(Y[:, f].numpy()),
+                                          _bits(wr.unpack_y(ren_r[f])))

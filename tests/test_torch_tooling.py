@@ -1,6 +1,7 @@
 """The port's tools on the CPU: the reference's benchmark row
 (``utils/bench.SpmvMetrics``), the card's HBM rates, ``utils/tracing``,
-``utils/hostmem`` with its A/B's verdict, and the parity sweep's family
+``utils/hostmem`` with its A/B's verdict, ``utils/parent_ab``'s paired
+verdict and its parent-side fold plan, and the parity sweep's family
 list.
 
 Every device measurement needs a card and raises without one; whether
@@ -23,7 +24,8 @@ import torch
 from hisparse_tpu.utils import bench as ht_bench
 from hisparse_tpu.utils import tracing as ht_tracing
 from hisparse_tpu_torch import SpmvOperator
-from hisparse_tpu_torch.utils import bench, hostmem_ab, parity, tracing
+from hisparse_tpu_torch.utils import (bench, hostmem_ab, parent_ab, parity,
+                                      tracing)
 from hisparse_tpu_torch.utils.bench import PARITY_FAMILIES, family_case
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -148,6 +150,31 @@ def test_hostmem_ab_verdict(tuned, verdict):
     assert res["tuned_won"] == sum(u > t for u, t in zip(untuned, tuned))
     assert res["mean_diff_s"] == pytest.approx(
         np.mean(untuned) - np.mean(tuned))
+
+
+@pytest.mark.parametrize("change,verdict", [
+    ([1.80, 1.85, 1.78, 1.82], "change faster"),
+    ([2.40, 2.50, 2.30, 2.45], "change slower"),
+    ([1.90, 2.40, 1.95, 2.35], "unresolved")])
+def test_parent_ab_verdict(change, verdict):
+    """The e2e pairs' verdict: the paired differences (parent - change)
+    against twice their standard error."""
+    parent = [2.05, 2.10, 2.00, 2.08]
+    res = parent_ab.paired(parent, change)
+    assert res["verdict"] == verdict
+    assert res["change_won"] == sum(p > c for p, c in zip(parent, change))
+    assert res["mean_diff_ms"] == pytest.approx(
+        np.mean(parent) - np.mean(change))
+
+
+def test_parent_ab_plan_is_the_checkouts(tmp_path):
+    """The parent's fold plan comes from the given checkout's own
+    ``fold_plan``, in a fresh process there: this checkout's, here."""
+    op = SpmvOperator(family_case(PARITY_FAMILIES[0])[1], device="cpu")
+    plan = parent_ab.parent_plan(str(ROOT), op, torch.device("cpu"),
+                                 str(tmp_path))
+    for got, want in zip(plan, (op.fold_idx, op.fold_ptr, op.fold_long)):
+        assert got.dtype == torch.int32 and torch.equal(got, want)
 
 
 def test_parity_families_are_parity_tpu_json():
