@@ -1,0 +1,2 @@
+"""The host's enqueue of a call, pokec cells."""
+from bench_h100.readers import enqueue_us as read  # noqa: F401

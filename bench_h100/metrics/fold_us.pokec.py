@@ -1,0 +1,2 @@
+"""Device us a call in row_fold, pokec cells."""
+from bench_h100.readers import fold_us as read  # noqa: F401
