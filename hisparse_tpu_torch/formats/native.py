@@ -10,7 +10,9 @@ byte-identical pure-Python implementation in formats/wavepack.py.
 
 A copy of ``hisparse_tpu/formats/native.py``; only the build location
 differs (and the library is written to a temporary name and renamed into
-place, so concurrent first uses never load a half-written file).
+place, so concurrent first uses never load a half-written file), and its
+phases are ``tracing.span``s in place of ``WP_PROF`` prints (the C++
+scheduler's own ``WP_PROF`` stage times stay).
 """
 from __future__ import annotations
 
@@ -96,9 +98,7 @@ def pack_full(indptr, indices, data, rank, col_rank, cfg,
     lib = _load()
     if lib is None:
         return None
-    import time
-    prof = os.environ.get("WP_PROF") == "1"
-    tp0 = time.perf_counter()
+    from ..utils.tracing import span
     nnz = int(indptr[-1])
     n_rows = indptr.shape[0] - 1
     indptr = np.ascontiguousarray(indptr, np.int64)
@@ -116,57 +116,56 @@ def pack_full(indptr, indices, data, rank, col_rank, cfg,
         T = ctypes.c_int64(0)
         nleft = ctypes.c_int64(0)
         opt_waves = ctypes.c_int64(0)
-        rc = lib.wp_plan(
-            ctypes.c_int64(nnz), ctypes.c_int64(n_rows),
-            _ptr(indptr, _i64p), _ptr(indices, _i32p),
-            _ptr(data_bits, _u32p),
-            _ptr(rank, _i64p),
-            _ptr(col_rank, _i64p) if col_rank is not None else None,
-            ctypes.c_int32(n_blocks), ctypes.c_int32(n_parts),
-            ctypes.c_int32(cfg.stripes), ctypes.c_int32(cfg.sublanes),
-            ctypes.c_int32(cfg.bank_blocks),
-            ctypes.c_int32(int(cfg.two_choice)),
-            ctypes.c_int32(int(cfg.block_major)),
-            ctypes.c_int32(cfg.classes_per_group),
-            ctypes.c_int32(bm_win), ctypes.c_int32(bm_adv),
-            ctypes.c_int64(min_tile),
-            ctypes.byref(T), ctypes.byref(nleft), ctypes.byref(opt_waves))
+        with span("hisparse.pack.native_plan"):
+            rc = lib.wp_plan(
+                ctypes.c_int64(nnz), ctypes.c_int64(n_rows),
+                _ptr(indptr, _i64p), _ptr(indices, _i32p),
+                _ptr(data_bits, _u32p),
+                _ptr(rank, _i64p),
+                _ptr(col_rank, _i64p) if col_rank is not None else None,
+                ctypes.c_int32(n_blocks), ctypes.c_int32(n_parts),
+                ctypes.c_int32(cfg.stripes), ctypes.c_int32(cfg.sublanes),
+                ctypes.c_int32(cfg.bank_blocks),
+                ctypes.c_int32(int(cfg.two_choice)),
+                ctypes.c_int32(int(cfg.block_major)),
+                ctypes.c_int32(cfg.classes_per_group),
+                ctypes.c_int32(bm_win), ctypes.c_int32(bm_adv),
+                ctypes.c_int64(min_tile),
+                ctypes.byref(T), ctypes.byref(nleft),
+                ctypes.byref(opt_waves))
         if rc != 0:
             return None
-        tp1 = time.perf_counter()
         T, nleft = int(T.value), int(nleft.value)
         S, G, K = cfg.sublanes, cfg.groups, cfg.classes_per_group
         val_dtype = (data.dtype if cfg.dtype in ("fixed", "bf16")
                      else np.float32)
-        vals = np.empty((T, S, 128), val_dtype)
-        idx16 = getattr(cfg, "idx16", False)
-        idxT = np.empty((T, S, 128), np.int16 if idx16 else np.int32)
-        t_block = np.empty(T, np.int32)
-        t_part = np.empty(T, np.int32)
-        t_first = np.empty(T, np.int32)
-        t_last = np.empty(T, np.int32)
-        cmap = (np.empty((T, G, K), np.int32) if cfg.block_major else None)
-        leftover = np.empty(nleft, np.int64)
+        with span("hisparse.pack.native_alloc"):
+            vals = np.empty((T, S, 128), val_dtype)
+            idx16 = getattr(cfg, "idx16", False)
+            idxT = np.empty((T, S, 128), np.int16 if idx16 else np.int32)
+            t_block = np.empty(T, np.int32)
+            t_part = np.empty(T, np.int32)
+            t_first = np.empty(T, np.int32)
+            t_last = np.empty(T, np.int32)
+            cmap = (np.empty((T, G, K), np.int32) if cfg.block_major
+                    else None)
+            leftover = np.empty(nleft, np.int64)
         pad = (np.float32(np.inf) if cfg.semiring == "min_plus"
                else val_dtype.type(0) if hasattr(val_dtype, "type")
                else np.float32(0))
         pad_bits = int(np.asarray(pad).view(
             np.uint16 if val16 else np.uint32))
-        tp2 = time.perf_counter()
-        lib.wp_emit_full(
-            ctypes.c_int32(int(cfg.steal_mantissa)),
-            ctypes.c_int32(int(val16)),
-            ctypes.c_int32(int(idx16)), ctypes.c_uint32(pad_bits),
-            _ptr(vals.view(np.uint16 if val16 else np.uint32), _u32p),
-            idxT.ctypes.data_as(_i32p),   # C++ reads u16 words when idx16
-            _ptr(t_block, _i32p), _ptr(t_part, _i32p),
-            _ptr(t_first, _i32p), _ptr(t_last, _i32p),
-            _ptr(cmap, _i32p) if cmap is not None else None,
-            _ptr(leftover, _i64p) if nleft else None)
-    if prof:
-        import sys
-        print(f"pack_full: plan {tp1-tp0:.2f}s alloc {tp2-tp1:.2f}s "
-              f"emit {time.perf_counter()-tp2:.2f}s", file=sys.stderr)
+        with span("hisparse.pack.native_emit"):
+            lib.wp_emit_full(
+                ctypes.c_int32(int(cfg.steal_mantissa)),
+                ctypes.c_int32(int(val16)),
+                ctypes.c_int32(int(idx16)), ctypes.c_uint32(pad_bits),
+                _ptr(vals.view(np.uint16 if val16 else np.uint32), _u32p),
+                idxT.ctypes.data_as(_i32p),   # C++ reads u16 words when idx16
+                _ptr(t_block, _i32p), _ptr(t_part, _i32p),
+                _ptr(t_first, _i32p), _ptr(t_last, _i32p),
+                _ptr(cmap, _i32p) if cmap is not None else None,
+                _ptr(leftover, _i64p) if nleft else None)
     return dict(vals=vals, idxT=idxT, tile_block=t_block, tile_part=t_part,
                 tile_first=t_first, tile_last=t_last, class_map=cmap,
                 leftover=leftover, nnz=nnz - nleft,

@@ -28,6 +28,7 @@ from ..formats.csr import (CSRMatrix, argsort_rows_by_nnz, csr_to_csc,
                            normalize_by_outdegree)
 from ..formats.wavepack import Wavepack, pack
 from ..ops.spmv import SpmvOperator
+from ..utils.tracing import span
 
 
 def y_to_rank(wp: Wavepack, y_renamed: torch.Tensor) -> torch.Tensor:
@@ -115,8 +116,9 @@ def apply_combine(levels, y_rank: torch.Tensor) -> torch.Tensor:
     """Fold partials through the combine tree; input and output are rank
     layouts."""
     x = y_rank
-    for wp_C, op_C in levels:
-        x = y_to_rank(wp_C, op_C(x, renamed=True))
+    with span("hisparse.combine"):
+        for wp_C, op_C in levels:
+            x = y_to_rank(wp_C, op_C(x, renamed=True))
     return x
 
 
@@ -142,6 +144,14 @@ class _App(torch.nn.Module):
         self.n_slots = wp_last.n_blocks * wp_last.config.rows_per_block
         self.register_buffer("inv_t", torch.from_numpy(self.inv).to(
             self.op.device))
+
+    @staticmethod
+    def _steps(its):
+        """The items of ``its``, each iteration of the caller's loop body
+        inside a ``hisparse.step`` span (closed at ``break`` too)."""
+        for i in its:
+            with span("hisparse.step"):
+                yield i
 
     def spmv(self, x: torch.Tensor) -> torch.Tensor:
         """One matrix apply in rank layout, combine included."""
@@ -189,7 +199,7 @@ class PageRank(_App):
         else:
             xr[self.inv] = x0
         x = torch.from_numpy(xr).to(self.op.device)
-        for _ in range(iters):
+        for _ in self._steps(range(iters)):
             x = self.step(x)
         return x[self.inv_t]
 
@@ -254,8 +264,10 @@ class SSSP(_App):
         if masked:
             changed = torch.zeros(self.n_slots, dtype=torch.bool, device=dev)
             changed[int(self.inv[source])] = True
-            for _ in range(iters):
-                act = torch.nonzero(changed[:self.n]).squeeze(1).cpu().numpy()
+            for _ in self._steps(range(iters)):
+                with span("hisparse.sync"):
+                    act = torch.nonzero(
+                        changed[:self.n]).squeeze(1).cpu().numpy()
                 if len(act) == 0:
                     break
                 y, n_tiles = self.spmv_masked(x, act)
@@ -265,10 +277,12 @@ class SSSP(_App):
                 x = x_new
                 self.iters_run += 1
             return x[self.inv_t]
-        for _ in range(iters):
+        for _ in self._steps(range(iters)):
             x, changed = self.step(x)
             self.iters_run += 1
-            if not bool(changed):
+            with span("hisparse.sync"):
+                done = not bool(changed)
+            if done:
                 break
         return x[self.inv_t]
 
@@ -314,7 +328,7 @@ class BFS(_App):
         level[src] = 0
         self.tiles_streamed = []
         act = np.array([src])
-        for it in range(1, max_iters + 1):
+        for it in self._steps(range(1, max_iters + 1)):
             if masked:
                 if len(act) == 0:
                     break
@@ -325,11 +339,12 @@ class BFS(_App):
                 reached = torch.maximum(reached, y)
             else:
                 newly, reached = self.step(frontier, reached)
-            ids = torch.nonzero(newly > 0).squeeze(1)
+            with span("hisparse.sync"):
+                ids = torch.nonzero(newly > 0).squeeze(1)
+                if masked and len(ids):
+                    act = ids[ids < self.n].cpu().numpy()
             if len(ids) == 0:
                 break
             level[ids] = it
             frontier = newly
-            if masked:
-                act = ids[ids < self.n].cpu().numpy()
         return level[self.inv_t]

@@ -68,6 +68,7 @@ import torch
 
 from ..config import LANES, SpmvConfig
 from ..formats.wavepack import Wavepack, bank_shift
+from ..utils.tracing import span
 from . import _kernels
 
 SPMM_MAX_F = 16              # features per SpMM kernel launch
@@ -824,7 +825,8 @@ class SpmvOperator(torch.nn.Module):
 
     def renamed_y(self, acc: torch.Tensor) -> torch.Tensor:
         """Accumulator -> y in packed (renamed) row order."""
-        return stripe_fold(acc, self.cfg, self.wp.n_blocks).reshape(-1)
+        with span("hisparse.stripe_fold"):
+            return stripe_fold(acc, self.cfg, self.wp.n_blocks).reshape(-1)
 
     def unpack_device(self, y_renamed: torch.Tensor,
                       dim: int = -1) -> torch.Tensor:
@@ -870,13 +872,15 @@ class SpmvOperator(torch.nn.Module):
         pack folds its words on the device (the saturating sum of
         ``Wavepack.unpack_y``, the JAX operator's host recombine) and
         returns them in one copy, as a uint32 CPU tensor."""
-        acc = wavepack_spmv(*self.stream_args(self._x(x), vals), self.cfg)
-        y = self.renamed_y(acc)
-        if self.cfg.dtype == "fixed":
-            if renamed:
-                return y.view(torch.uint32)
-            return self.fold(y).cpu().view(torch.uint32)
-        return y if renamed else self.unpack_device(y)
+        with span("hisparse.forward"):
+            with span("hisparse.x"):
+                args = self.stream_args(self._x(x), vals)
+            y = self.renamed_y(wavepack_spmv(*args, self.cfg))
+            if self.cfg.dtype == "fixed":
+                if renamed:
+                    return y.view(torch.uint32)
+                return self.fold(y).cpu().view(torch.uint32)
+            return y if renamed else self.unpack_device(y)
 
     def active_tiles(self, active) -> np.ndarray:
         """The tiles, in stream order, that can touch an active column
@@ -917,15 +921,17 @@ class SpmvOperator(torch.nn.Module):
         selected tile reaches come out at the semiring's identity in
         renamed order.  Q8.24 packs raise ``ValueError``."""
         check_float(self.cfg, "the masked path")
-        x = self._x(x)
-        if isinstance(active, torch.Tensor):
-            active = active.cpu().numpy()
-        ac = np.asarray(active)
-        if ac.dtype == np.bool_:
-            ac = np.flatnonzero(ac)
-        if self._col_rank is not None:
-            ac = self._col_rank[ac]
-        return self.masked_tiles(x, self.active_tiles(ac), renamed)
+        with span("hisparse.masked"):
+            with span("hisparse.x"):
+                x = self._x(x)
+            if isinstance(active, torch.Tensor):
+                active = active.cpu().numpy()
+            ac = np.asarray(active)
+            if ac.dtype == np.bool_:
+                ac = np.flatnonzero(ac)
+            if self._col_rank is not None:
+                ac = self._col_rank[ac]
+            return self.masked_tiles(x, self.active_tiles(ac), renamed)
 
     def masked_args(self, x: torch.Tensor, tiles):
         """The operands of :func:`wavepack_spmv_masked` for packed-order x
@@ -944,9 +950,10 @@ class SpmvOperator(torch.nn.Module):
             return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
                 self.device)
 
+        with span("hisparse.x"):
+            xt = build_xt(x, self.cfg, self.wp.n_parts)
         return (self.vals, self.idxT, dev(tiles), self.tile_part,
-                self.class_map, dev(start), dev(end),
-                build_xt(x, self.cfg, self.wp.n_parts))
+                self.class_map, dev(start), dev(end), xt)
 
     def masked_tiles(self, x: torch.Tensor, tiles,
                      renamed: bool = False) -> torch.Tensor:
@@ -967,26 +974,30 @@ class SpmvOperator(torch.nn.Module):
         fold reads a partial's row of features at a time.  Q8.24 packs
         raise ``ValueError``."""
         check_float(self.cfg, "matmul")
-        X = torch.as_tensor(X, device=self.device)
-        if X.dim() != 2 or X.shape[0] != self.wp.num_cols or X.shape[1] < 1:
-            raise ValueError(f"matmul takes (num_cols, F) features with "
-                             f"num_cols = {self.wp.num_cols}, got "
-                             f"{tuple(X.shape)}")
-        if self.col_order is not None:
-            X = X[self.col_order]
-        y_ren = torch.empty(self.perm.shape[0], X.shape[1],
-                            dtype=torch.float32, device=self.device)
-        for f0 in range(0, X.shape[1], SPMM_MAX_F):
-            Xc = X[:, f0:f0 + SPMM_MAX_F]
-            fc = Xc.shape[1]
-            acc = wavepack_spmm(self.vals, self.idxT, self.tile_part,
-                                self.class_map, self.run_start,
-                                self.run_end,
-                                build_xt_multi(Xc, self.cfg, self.wp.n_parts),
-                                self.cfg, F=fc)
-            stripe_fold(acc, self.cfg, self.wp.n_blocks,
-                        out=y_ren[:, f0:f0 + fc])
-        return y_ren.T if renamed else self.unpack_device(y_ren, dim=0)
+        with span("hisparse.matmul"):
+            X = torch.as_tensor(X, device=self.device)
+            if (X.dim() != 2 or X.shape[0] != self.wp.num_cols
+                    or X.shape[1] < 1):
+                raise ValueError(f"matmul takes (num_cols, F) features with "
+                                 f"num_cols = {self.wp.num_cols}, got "
+                                 f"{tuple(X.shape)}")
+            y_ren = torch.empty(self.perm.shape[0], X.shape[1],
+                                dtype=torch.float32, device=self.device)
+            for f0 in range(0, X.shape[1], SPMM_MAX_F):
+                # one x span a chunk, the first with the column gather
+                with span("hisparse.x"):
+                    if f0 == 0 and self.col_order is not None:
+                        X = X[self.col_order]
+                    Xc = X[:, f0:f0 + SPMM_MAX_F]
+                    xt = build_xt_multi(Xc, self.cfg, self.wp.n_parts)
+                fc = Xc.shape[1]
+                acc = wavepack_spmm(self.vals, self.idxT, self.tile_part,
+                                    self.class_map, self.run_start,
+                                    self.run_end, xt, self.cfg, F=fc)
+                with span("hisparse.stripe_fold"):
+                    stripe_fold(acc, self.cfg, self.wp.n_blocks,
+                                out=y_ren[:, f0:f0 + fc])
+            return y_ren.T if renamed else self.unpack_device(y_ren, dim=0)
 
 
 def spmv(wp: Wavepack, x, device="cuda") -> torch.Tensor:

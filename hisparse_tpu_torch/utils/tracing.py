@@ -1,14 +1,24 @@
-"""Tracing / observability: phase logs and the device profiler.
+"""Tracing / observability: spans, phase logs and the device profiler.
 
 The port of ``hisparse_tpu/utils/tracing.py`` (the analog of the
 reference's INFO phase logs, sw/host.cpp:146,232,300,358, and its OpenCL
 queue profiling, :589):
 
-  * phase logging with timestamps (``log_phase`` / ``phase`` context),
-    toggled by HISPARSE_LOG;
+  * ``span(name)``, the one timing helper: a ``torch.profiler``
+    ``record_function`` while a profiler runs, so that the span sits on the
+    profiler's clock beside the device work it launched; a timestamped
+    stderr log of its duration under HISPARSE_LOG (``log_phase``; ``phase``
+    is the JAX package's name for it); otherwise a shared null context;
   * ``device_profile(logdir)``, a ``torch.profiler`` capture of CPU and
     CUDA activity (the ``jax.profiler`` trace's counterpart) that writes a
     Chrome trace into ``logdir``.
+
+The program's spans are named ``hisparse.*`` and nest by time on the
+calling thread: ``hisparse.forward`` / ``matmul`` / ``masked`` around an
+operator call, ``hisparse.x`` (x to XT) and ``hisparse.stripe_fold``
+inside it; ``hisparse.step`` around an app iteration, ``hisparse.sync``
+(its host read) and ``hisparse.combine`` (the combine tree) inside it;
+``hisparse.pack.*`` around the pack's phases.
 """
 from __future__ import annotations
 
@@ -16,6 +26,15 @@ import contextlib
 import os
 import sys
 import time
+
+from torch.autograd import profiler as _profiler
+
+_NULL = contextlib.nullcontext()
+# os.environ's own mapping (bytes names on POSIX): a name's membership
+# there is one lookup, where os.environ.get raises and catches a KeyError
+# for an unset name, about a microsecond of every span on the null path
+_ENV = os.environ._data
+_LOG_NAME = os.environ.encodekey("HISPARSE_LOG")
 
 
 def log_enabled() -> bool:
@@ -28,11 +47,35 @@ def log_phase(msg: str) -> None:
               file=sys.stderr, flush=True)
 
 
+def span(name: str):
+    """A context manager that marks a phase of the program as ``name``.
+
+    While a ``torch.profiler`` runs it is ``record_function(name)``: the
+    span is a host event on the profiler's clock, so that the device work
+    launched inside it can be put down to it (``bench_h100/spans.py``).
+    With HISPARSE_LOG=1 it logs
+    ``name ...`` on entry and its duration on exit.  Otherwise it returns
+    one shared null context: a flag read and a dict lookup, no allocation
+    and no call into the dispatcher."""
+    if _profiler._is_profiler_enabled:
+        rf = _profiler.record_function(name)
+        return _logged(name, rf) if _logging() else rf
+    return _logged(name, _NULL) if _logging() else _NULL
+
+
+phase = span
+
+
+def _logging() -> bool:
+    return _LOG_NAME in _ENV and log_enabled()
+
+
 @contextlib.contextmanager
-def phase(name: str):
+def _logged(name: str, inner):
     log_phase(f"{name} ...")
     t0 = time.perf_counter()
-    yield
+    with inner:
+        yield
     log_phase(f"{name} done in {time.perf_counter()-t0:.3f}s")
 
 
