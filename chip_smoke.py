@@ -95,11 +95,15 @@ Phases, in order; any failure raises and exits non-zero:
      within 1e-4 of pagerank_reference (max|r - ref| / max|ref|), BFS levels
      equal to scipy's, SSSP within 1e-4 (relative, at least 1) of Dijkstra
      with the same vertices unreachable, masked equal to dense, the SpMV
-     and masked counters above 0.  Then the SpMV kernel against its plain
-     version on the PageRank pack, a combine level, the BFS pack and the
-     pokec pack, and the masked kernel at a BFS frontier and a mid-run SSSP
-     frontier, bit for bit (the plain versions walk the 680M-slot pokec
-     stream in chunks); the two kernels timed on the pokec pack beside
+     and masked counters above 0, one fold into rank order for each SpMV
+     and masked launch.  Then the SpMV kernel against its plain version on
+     the PageRank pack, the BFS pack and the pokec pack, and the masked
+     kernel at a BFS frontier and a mid-run SSSP frontier, bit for bit (the
+     plain versions walk the 680M-slot pokec stream in chunks); the fold
+     into rank order against the plain fold on each app's renamed y
+     (PageRank plus_times, BFS max_times at its frontier, SSSP min_plus),
+     bit for bit; one SSSP step counted (one SpMV launch and one fold);
+     the two kernels timed on the pokec pack beside
      their bounds; the PageRank, BFS and SSSP steps timed (PageRank beside
      a cuSPARSE CSR SpMV of its matrix) and profiled; generate, pack and
      Dijkstra seconds and the masked call's host time printed; the SpMV
@@ -1326,6 +1330,20 @@ def compare_at(what, op, x_packed, active):
     return out
 
 
+def fold_plain_eq(tag, app, y) -> None:
+    """An app's fold of its operator's renamed y into rank order, the
+    kernel against its plain version in the pack's algebra, bit for
+    bit."""
+    from hisparse_tpu_torch.ops.spmv import algebra, row_fold, row_fold_plain
+    alg = algebra(app.wp.config)
+    y = y.contiguous()
+    ok = exact(row_fold(y, app.fold_idx, app.fold_ptr, app.fold_long, alg),
+               row_fold_plain(y, app.fold_idx, app.fold_ptr, alg))
+    print(f"{tag} fold to rank order, {alg} ({app.fold_long.numel()} ranks "
+          f"of more than 32 partials): kernel==plain {ok}", flush=True)
+    check(ok, f"{tag} fold to rank order: kernel vs plain not bit-equal")
+
+
 def phase_apps(dev, kernels):
     """Phase 8: PageRank and BFS on the 100k power-law graph and SSSP on
     the pokec stand-in through the port's apps; returns the records of the
@@ -1336,7 +1354,6 @@ def phase_apps(dev, kernels):
                                     normalize_by_outdegree,
                                     pagerank_reference, powerlaw_csr,
                                     rmat_csr, sssp_reference)
-    from hisparse_tpu_torch.models.apps import y_to_rank
     from hisparse_tpu_torch.ops.spmv import (build_xt_multi,
                                              spmm_tiles_plain,
                                              spmv_masked_tiles_plain,
@@ -1359,18 +1376,17 @@ def phase_apps(dev, kernels):
     torch.cuda.synchronize()
     t5 = time.perf_counter()
     print(f"apps-100k: {g.num_rows}x{g.num_cols} nnz {g.nnz}; generate "
-          f"{t1 - t0:.1f} s; PageRank pack + combine {t2 - t1:.1f} s, BFS "
+          f"{t1 - t0:.1f} s; PageRank pack + fold plan {t2 - t1:.1f} s, BFS "
           f"{t3 - t2:.1f} s", flush=True)
     print(f"pokec: {m.num_rows}x{m.num_cols} nnz {m.nnz}; generate "
-          f"{t4 - t3:.1f} s, SSSP transpose + pack + combine + upload "
+          f"{t4 - t3:.1f} s, SSSP transpose + pack + fold plan + upload "
           f"{t5 - t4:.1f} s", flush=True)
     for tag, app in (("pagerank", pr), ("bfs", bf), ("sssp", ss)):
         wp = app.wp
         print(f"{tag} pack: tiles {wp.num_tiles}, blocks {wp.n_blocks}, "
               f"parts {wp.n_parts}, fill {wp.fill:.4f}, stream "
-              f"{wp.stream_bytes / 1e6:.1f} MB; combine levels "
-              f"{len(app.combine)} ({', '.join(str(w.num_tiles) for w, _ in app.combine)} tiles)",
-              flush=True)
+              f"{wp.stream_bytes / 1e6:.1f} MB; fold: {app.n} ranks, "
+              f"{app.fold_long.numel()} of more than 32 partials", flush=True)
 
     # the main path, counted: every app run
     reset_counts(kernels)
@@ -1394,7 +1410,9 @@ def phase_apps(dev, kernels):
     it_m, sssp_tiles = ss.iters_run, list(ss.tiles_streamed)
     launches = counts(kernels)
     check(launches["wavepack_spmv"] > 0
-          and launches["wavepack_spmv_masked"] > 0,
+          and launches["wavepack_spmv_masked"] > 0
+          and launches["row_fold"] == launches["wavepack_spmv"]
+          + launches["wavepack_spmv_masked"],
           f"the apps path's kernel counts {launches}")
     print(f"apps: launches {launches}", flush=True)
 
@@ -1441,16 +1459,16 @@ def phase_apps(dev, kernels):
     x_pr = torch.full((pr.n_slots,), 1.0 / pr.n, device=dev)
     x_pr = pr.step(pr.step(x_pr))
     cmps = [compare_at("pagerank pack", pr.op, x_pr[:pr.n], None)]
-    wp_c, op_c = pr.combine[0]
-    x_c = y_to_rank(pr.wp, pr.op(x_pr[:pr.n], renamed=True))
-    cmps.append(compare_at(f"pagerank combine level 1 ({wp_c.num_tiles} "
-                           "tiles)", op_c, x_c, None))
     k_bfs = max(1, int(lv_d.max()) // 2)
     front_nat = torch.from_numpy((lv_d == k_bfs).astype(np.float32)).to(dev)
     f_rank = rank_vector(bf, front_nat, 0.0)
     cmps.append(compare_at(f"bfs pack at the level-{k_bfs} frontier "
                            f"({int(front_nat.sum())} vertices)", bf.op,
                            f_rank[:bf.n], bf.inv[lv_d == k_bfs]))
+    # the fold into rank order against its plain version, on PageRank's
+    # and BFS's renamed y (SSSP's below, with its step)
+    for tag, app, x in (("pagerank", pr, x_pr), ("bfs", bf, f_rank)):
+        fold_plain_eq(tag, app, app.op(x[:app.n], renamed=True))
     k = max(1, it_d // 2)
     d_k = ss.run(source=0, iters=k)
     d_k1 = ss.run(source=0, iters=k - 1)
@@ -1471,6 +1489,18 @@ def phase_apps(dev, kernels):
     torch.cuda.synchronize()
     print(f"sssp masked host: active_tiles {1e3 * t_sel:.3f} ms, masked "
           f"call enqueue {1e3 * t_call:.3f} ms", flush=True)
+    # one SSSP step: one SpMV launch and one fold into rank order, no
+    # selection SpMVs; the fold against its plain version
+    before = counts(kernels)
+    ss.step(x_ss)
+    torch.cuda.synchronize()
+    after = counts(kernels)
+    step_l = {k: after[k] - before[k] for k in after}
+    print(f"sssp-pokec step launches {step_l}", flush=True)
+    check(step_l["wavepack_spmv"] == 1 and step_l["row_fold"] == 1
+          and sum(step_l.values()) == 2,
+          f"an SSSP step's launches {step_l}")
+    fold_plain_eq("sssp-pokec", ss, ss.op(x_ss[:ss.n], renamed=True))
 
     # times: the kernels on the pokec pack, queued, beside their bounds
     args, acc = cmp_ss["args"], cmp_ss["acc"]

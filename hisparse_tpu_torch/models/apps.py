@@ -4,14 +4,19 @@
 Each app packs its matrix with a column order equal to its row order, so
 an iteration feeds y straight back as x in the renamed (packed) space,
 with no permutation.  Hub rows split by the packer are recombined on the
-device by a combine tree (``build_combine``): wavepack SpMVs over 0/1
-selection matrices in the app's semiring.  Each app is an ``nn.Module``
-that holds its ``SpmvOperator``s; state stays on the device across
-iterations, and each iteration reads one value back to the host: the
-convergence test (SSSP's ``changed``, BFS's new frontier).  The masked
-runs (``masked=True``) stream only the tiles an iteration's frontier can
-touch (``SpmvOperator.masked_tiles``); they also bring the frontier's
-indices back for the tile selection (``SpmvOperator.active_tiles``).
+device by one fold (``row_fold``) from the pack's renamed y straight to
+rank order: each rank's partials in ascending renamed order, in the
+app's algebra.  The JAX package recombines them by a combine tree of
+wavepack SpMVs over 0/1 selection matrices; its counterpart here
+(``build_combine``, ``apply_combine``) is kept for the tests that hold
+the two packages' trees byte-equal, and the apps do not run it.  Each app
+is an ``nn.Module`` that holds its ``SpmvOperator`` and fold plan; state
+stays on the device across iterations, and each iteration reads one value
+back to the host: the convergence test (SSSP's ``changed``, BFS's new
+frontier).  The masked runs (``masked=True``) stream only the tiles an
+iteration's frontier can touch (``SpmvOperator.masked_tiles``); they also
+bring the frontier's indices back for the tile selection
+(``SpmvOperator.active_tiles``).
 
 The JAX package's jit plumbing (``step_fn``, ``_op_args``, ``_op_call``)
 becomes a ``step`` method: PyTorch runs eagerly.
@@ -27,7 +32,7 @@ from ..config import SpmvConfig
 from ..formats.csr import (CSRMatrix, argsort_rows_by_nnz, csr_to_csc,
                            normalize_by_outdegree)
 from ..formats.wavepack import Wavepack, pack
-from ..ops.spmv import SpmvOperator
+from ..ops.spmv import SpmvOperator, algebra, fold_plan, row_fold
 from ..utils.tracing import span
 
 
@@ -51,7 +56,9 @@ def build_combine(wp_A: Wavepack, n_rows: int, order_rows, semiring: str,
     banks.  Each level reduces every row's partials in chunks of
     ``fanout_cap`` until one value a row remains (at most 2 levels in
     practice).  Returns a list of (Wavepack, SpmvOperator), applied in
-    order with ``y_to_rank`` between levels (:func:`apply_combine`)."""
+    order with ``y_to_rank`` between levels (:func:`apply_combine`).  The
+    counterpart of the JAX package's tree; the apps fold with
+    ``row_fold`` instead."""
     import scipy.sparse as sp
     perm = wp_A.perm
     n_slots_y = perm.shape[0]
@@ -124,11 +131,13 @@ def apply_combine(levels, y_rank: torch.Tensor) -> torch.Tensor:
 
 class _App(torch.nn.Module):
     """What the three apps share: the pack of their matrix with a column
-    order equal to its row order, the operator and the combine tree on one
-    device, and the maps between natural and rank order."""
+    order equal to its row order, the operator and the fold plan from its
+    renamed y to rank order on one device, and the maps between natural
+    and rank order.  The iterate is the ``n_slots`` = n ranks; ``combine``,
+    the selection packs an iteration streams, is empty."""
 
-    def __init__(self, m: CSRMatrix, cfg: SpmvConfig | None, semiring: str,
-                 device, split_max="auto"):
+    def __init__(self, m: CSRMatrix, cfg: SpmvConfig | None, device,
+                 split_max="auto"):
         super().__init__()
         self.n = m.num_rows
         order = argsort_rows_by_nnz(m, descending=True)
@@ -137,11 +146,17 @@ class _App(torch.nn.Module):
         # rank slot inv[v] holds original row v
         self.inv = np.empty(self.n, np.int64)
         self.inv[order] = np.arange(self.n)
-        self.combine = build_combine(self.wp, self.n, order, semiring,
-                                     device)
-        self.combine_ops = torch.nn.ModuleList(op for _, op in self.combine)
-        wp_last = self.combine[-1][0]
-        self.n_slots = wp_last.n_blocks * wp_last.config.rows_per_block
+        # renamed position i holds a partial of natural row perm[i], so of
+        # rank inv[perm[i]]; padding positions (perm >= n) map to n
+        perm = self.wp.perm
+        rank = np.where(perm < self.n,
+                        self.inv[np.minimum(perm, self.n - 1)], self.n)
+        for name, a in zip(("fold_idx", "fold_ptr", "fold_long"),
+                           fold_plan(rank, self.n)):
+            self.register_buffer(name, torch.from_numpy(a).to(
+                self.op.device))
+        self.combine = []
+        self.n_slots = self.n
         self.register_buffer("inv_t", torch.from_numpy(self.inv).to(
             self.op.device))
 
@@ -153,17 +168,23 @@ class _App(torch.nn.Module):
             with span("hisparse.step"):
                 yield i
 
+    def _fold(self, y: torch.Tensor) -> torch.Tensor:
+        """The operator's renamed y -> rank layout: each rank's hub-split
+        partials folded in ascending renamed order (:func:`row_fold`)."""
+        with span("hisparse.combine"):
+            return row_fold(y.contiguous(), self.fold_idx, self.fold_ptr,
+                            self.fold_long, algebra(self.wp.config))
+
     def spmv(self, x: torch.Tensor) -> torch.Tensor:
-        """One matrix apply in rank layout, combine included."""
-        y = self.op(x[:self.n], renamed=True)
-        return apply_combine(self.combine, y_to_rank(self.wp, y))
+        """One matrix apply in rank layout, hub-split rows folded."""
+        return self._fold(self.op(x[:self.n], renamed=True))
 
     def spmv_masked(self, x: torch.Tensor, active: np.ndarray):
         """:meth:`spmv` from only the tiles that can touch the rank-order
         columns ``active``; returns (result, tiles streamed)."""
         tiles = self.op.active_tiles(active)
         y = self.op.masked_tiles(x[:self.n], tiles, renamed=True)
-        return apply_combine(self.combine, y_to_rank(self.wp, y)), len(tiles)
+        return self._fold(y), len(tiles)
 
 
 class PageRank(_App):
@@ -171,15 +192,15 @@ class PageRank(_App):
 
     The matrix is column-normalised (1/outdegree) and packed as P A P^T
     with matched row and column renaming; hub rows' partial sums are
-    recombined on the device by the combine tree, so an iteration is the
-    SpMV, the combine SpMVs and the damping, all on the device."""
+    recombined on the device by the fold into rank order, so an iteration
+    is the SpMV, the fold and the damping, all on the device."""
 
     def __init__(self, adj: CSRMatrix, config: SpmvConfig | None = None,
                  damping: float = 0.85, device="cuda", split_max="auto"):
         if adj.num_rows != adj.num_cols:
             raise ValueError("PageRank needs a square adjacency matrix")
         super().__init__(normalize_by_outdegree(adj.astype(np.float32)),
-                         config, "plus_times", device, split_max)
+                         config, device, split_max)
         self.damping = damping
         valid = torch.zeros(self.n_slots, dtype=torch.float32)
         valid[:self.n] = 1.0
@@ -233,8 +254,7 @@ class SSSP(_App):
             raise ValueError("SSSP needs a square weighted adjacency matrix")
         cfg = dataclasses.replace(config or SpmvConfig(), semiring="min_plus",
                                   dtype="fp32", steal_mantissa=False)
-        super().__init__(csr_to_csc(adj.astype(np.float32)), cfg,
-                         "min_plus", device)
+        super().__init__(csr_to_csc(adj.astype(np.float32)), cfg, device)
 
     def step(self, x: torch.Tensor):
         """One relaxation in rank layout: ``(x_new, changed)``, changed a
@@ -303,7 +323,7 @@ class BFS(_App):
         at = csr_to_csc(adj)
         at = CSRMatrix(at.num_rows, at.num_cols,
                        np.ones(at.nnz, np.float32), at.indices, at.indptr)
-        super().__init__(at, cfg, "max_times", device)
+        super().__init__(at, cfg, device)
 
     def step(self, frontier: torch.Tensor, reached: torch.Tensor):
         """One frontier step in rank layout: ``(newly, reached)``, newly

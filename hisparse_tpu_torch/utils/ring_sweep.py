@@ -13,13 +13,13 @@ the instantiations timed.
 entry points), for instance the parent commit unpacked with ``git
 archive``.  Each variant is timed on the SpMV shapes of ``chip_smoke.py``:
 googleplus (block-major idx16 steal), the 4-partition PageRank pack, the
-SSSP pokec pack and its three combine levels (min_plus), the masked
-pokec call over the tiles of a random 10% of the columns, and the
-transformer-70 training pack A (one row block), with CUDA events
-and the host enqueue held out (``utils/bench.device_time_ms(queued=
-True)``), the parent first and last; every correct variant's output is
-checked bit-equal to the first one timed.  Prints one line a (shape,
-variant) and the card's name and power limit; needs nvcc and a GPU.
+SSSP pokec pack (min_plus), the masked pokec call over the tiles of a
+random 10% of the columns, and the transformer-70 training pack A (one
+row block), with CUDA events and the host enqueue held out
+(``utils/bench.device_time_ms(queued=True)``), the parent first and last;
+every correct variant's output is checked bit-equal to the first one
+timed.  Prints one line a (shape, variant) and the card's name and power
+limit; needs nvcc and a GPU.
 """
 from __future__ import annotations
 
@@ -44,8 +44,8 @@ from .bench import (APPS_100K, GOOGLEPLUS, GOOGLEPLUS_CFG, GOOGLEPLUS_PACK,
                     POKEC, T70, T70_CFG, device_time_ms)
 
 # the instantiations timed: googleplus, plus_times chain (PageRank),
-# min_plus chain (pokec and its combine levels), its masked form, and
-# plus_times chain idx16 (transformer-70)
+# min_plus chain (pokec), its masked form, and plus_times chain idx16
+# (transformer-70)
 ENTRY = r'''
 extern "C" int sweep_launch(int which, const void* vals, const void* idxT,
     const void* tile_ids, const void* tile_part, const void* cmap,
@@ -182,8 +182,6 @@ def shapes(dev) -> list:
     out = [("googleplus", 0, x_of(op), op.cfg, None),
            ("pagerank-pack", 1, x_of(pr.op), pr.op.cfg, None),
            ("pokec", 2, x_of(ss.op), ss.op.cfg, None)]
-    out += [(f"pokec-combine-{k + 1}", 2, x_of(o), o.cfg, None)
-            for k, (_, o) in enumerate(ss.combine)]
     active = np.flatnonzero(np.random.default_rng(0).random(
         ss.op.wp.num_cols) < 0.1)
     margs = ss.op.masked_args(torch.rand(ss.op.wp.num_cols, generator=g,

@@ -17,7 +17,8 @@ The program's spans are named ``hisparse.*`` and nest by time on the
 calling thread: ``hisparse.forward`` / ``matmul`` / ``masked`` around an
 operator call, ``hisparse.x`` (x to XT) and ``hisparse.stripe_fold``
 inside it; ``hisparse.step`` around an app iteration, ``hisparse.sync``
-(its host read) and ``hisparse.combine`` (the combine tree) inside it;
+(its host read) and ``hisparse.combine`` (the fold of hub-split
+partials into rank order) inside it;
 ``hisparse.pack.*`` around the pack's phases.
 """
 from __future__ import annotations

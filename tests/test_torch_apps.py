@@ -6,7 +6,8 @@ interpret mode, the port's with ``device="cpu"`` (the plain versions of
 the kernels).  Tolerances:
 
   * PageRank within 1e-5, max|d| / max|ref|, of the JAX ``PageRank`` (the
-    order of fp32 sums in the SpMV and the combine), and within the JAX
+    order of fp32 sums in the SpMV, and the port's fold against the JAX
+    combine tree), and within the JAX
     tests' rtol=2e-3 of ``pagerank_reference``;
   * SSSP distances and ``iters_run`` equal to the JAX ``SSSP``'s (min_plus
     rounds once per term and takes exact minima), and within the JAX
@@ -14,8 +15,11 @@ the kernels).  Tolerances:
   * BFS levels equal to the JAX ``BFS``'s and to scipy's unweighted
     shortest-path levels;
   * masked runs equal to the dense runs and to the JAX masked runs;
-  * the apps' packs, and their combine trees' (``build_combine``),
-    byte-equal to the JAX package's.
+  * the apps' packs, and the combine trees the port's ``build_combine``
+    makes of them, byte-equal to the JAX package's;
+  * the apps' fold into rank order against the port's combine tree on the
+    same y: min_plus and max_times (after ``> 0``) bit for bit,
+    plus_times within 1e-6.
 """
 import functools
 
@@ -23,6 +27,8 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 import scipy.sparse.csgraph as csgraph
+
+import torch
 
 import hisparse_tpu as ht
 import hisparse_tpu_torch as hp
@@ -83,20 +89,27 @@ def test_pagerank_matches_reference(case):
     assert abs(got.sum() - ref.sum()) < 1e-3
 
 
+def _tree(app):
+    """The port's combine tree of an app's pack, on the CPU."""
+    return apps.build_combine(app.wp, app.n, np.argsort(app.inv),
+                              app.wp.config.semiring, "cpu")
+
+
 def test_pagerank_megahub_multilevel_combine():
     """A 2000-degree hub forces a 2-level combine tree; the matrix's pack
     and the tree's are byte-equal to the JAX package's."""
     m_r, m_p = _megahub()
     pr = hp.PageRank(m_p, hp.SpmvConfig(**CFG), device="cpu")
-    assert len(pr.combine) == 2
     m_norm = ht.normalize_by_outdegree(m_r.astype(np.float32))
     order = ht.formats.csr.argsort_rows_by_nnz(m_norm, descending=True)
     wp_ref = ht.pack(m_norm, ht.SpmvConfig(**CFG), split_max="auto",
                      col_order=order)
     _assert_same_pack(wp_ref, pr.wp)
+    levels = apps.build_combine(pr.wp, pr.n, order, "plus_times", "cpu")
+    assert len(levels) == 2
     ref_levels = japps.build_combine(wp_ref, m_r.num_rows, order,
                                      "plus_times", True)
-    for (wp_r, _), (wp_p, _) in zip(ref_levels, pr.combine, strict=True):
+    for (wp_r, _), (wp_p, _) in zip(ref_levels, levels, strict=True):
         _assert_same_pack(wp_r, wp_p)
     got = pr.run(iters=8).numpy()
     np.testing.assert_allclose(got, hp.pagerank_reference(m_p, iters=8),
@@ -130,8 +143,7 @@ def test_sssp_combine_matches_reference():
     """The min_plus combine tree (selection weights 0) is byte-equal to
     the JAX package's."""
     _, _, s_r, s_p = _sssp_pair(4)
-    assert len(s_p.combine) == len(s_r.combine)
-    for (wp_r, _), (wp_p, _) in zip(s_r.combine, s_p.combine):
+    for (wp_r, _), (wp_p, _) in zip(s_r.combine, _tree(s_p), strict=True):
         _assert_same_pack(wp_r, wp_p)
     _assert_same_pack(s_r.wp, s_p.wp)
 
@@ -146,7 +158,7 @@ def test_bfs_levels():
     bf = hp.BFS(m_p, hp.SpmvConfig(**CFG), device="cpu")
     bf_r = japps.BFS(m_r, ht.SpmvConfig(**CFG), interpret=True)
     for (wp_r, _), (wp_p, _) in zip([(bf_r.wp, None)] + bf_r.combine,
-                                    [(bf.wp, None)] + bf.combine,
+                                    [(bf.wp, None)] + _tree(bf),
                                     strict=True):
         _assert_same_pack(wp_r, wp_p)
     got = bf.run(source=0, max_iters=30).numpy()
@@ -192,6 +204,57 @@ def test_sssp_masked_matches_dense():
     np.testing.assert_array_equal(d_masked, s_r.run(source=0, masked=True))
     assert ss.iters_run == s_r.iters_run
     assert len(ss.tiles_streamed) == ss.iters_run
+
+
+APPS = {"plus_times": hp.PageRank, "min_plus": hp.SSSP, "max_times": hp.BFS}
+
+
+def _hub_graph(case, semiring):
+    """An adjacency whose packed matrix has split hub rows: the megahub
+    (its 2000-entry row) or hub-500, as it is for PageRank and transposed
+    for SSSP and BFS, which pack the transpose; duplicates summed and
+    weights positive."""
+    m = (_megahub()[1] if case == "megahub" else hp.powerlaw_csr(
+        500, 500, 8, 1.1, seed=6)).to_scipy()
+    m = sp.csr_matrix(m if semiring == "plus_times" else m.T)
+    m.sum_duplicates()
+    m.data = np.abs(m.data).astype(np.float32) + 0.1
+    return hp.CSRMatrix.from_scipy(m)
+
+
+@pytest.mark.parametrize("semiring", list(APPS))
+@pytest.mark.parametrize("case", ["megahub", "hub-500"])
+def test_app_fold_matches_combine_tree(case, semiring):
+    """An app's step folds its renamed y straight into the n ranks, as the
+    port's combine tree does through ``y_to_rank`` on the same y: min_plus
+    bit for bit, max_times after ``> 0``, plus_times within 1e-6; no
+    selection pack is streamed.  Masked SSSP and BFS runs still equal the
+    dense runs."""
+    m = _hub_graph(case, semiring)
+    app = APPS[semiring](m, hp.SpmvConfig(**CFG), device="cpu")
+    assert app.combine == [] and app.n_slots == app.n
+    assert np.diff(app.fold_ptr.numpy()).max() > 1        # hub rows split
+    rng = np.random.default_rng(11)
+    x = rng.random(app.n).astype(np.float32)
+    if semiring == "min_plus":
+        x[rng.random(app.n) < 0.3] = np.inf
+    elif semiring == "max_times":
+        x = (x < 0.2).astype(np.float32)
+    x = torch.from_numpy(x)
+    got = app.spmv(x).numpy()
+    assert got.shape == (app.n,)
+    ref = apps.apply_combine(_tree(app), apps.y_to_rank(
+        app.wp, app.op(x, renamed=True))).numpy()[:app.n]
+    if semiring == "plus_times":
+        assert _rel(got, ref) <= 1e-6
+        return
+    if semiring == "min_plus":
+        np.testing.assert_array_equal(got, ref)
+    else:
+        np.testing.assert_array_equal(got > 0, ref > 0)
+    src = int(np.argmax(m.row_nnz()))
+    dense = app.run(src).numpy()
+    np.testing.assert_array_equal(app.run(src, masked=True).numpy(), dense)
 
 
 def test_pagerank_function_and_reference():
