@@ -1,6 +1,7 @@
 """The control of each cell's check: the computation in the nearest
 precision below float32, put in the program's place, which the check has
-to find wrong.
+to find wrong.  A cell's driver module may give its own control, as
+``control_spec(spec) -> (spec, cell type)``; for a driver without one:
 
   * call cells: the program's own bfloat16 path (``dtype="bf16"``: values
     stored as bfloat16, x and the sums in float32; the path has no
@@ -54,7 +55,11 @@ class Bf16Sssp(queries.Cell):
 
 
 def control_spec(spec: harness.Spec):
-    """``(spec, cell type)`` of the cell's control."""
+    """``(spec, cell type)`` of the cell's control: the driver's own
+    ``control_spec`` where it has one, else the module doc's."""
+    own = getattr(spec.driver(), "control_spec", None)
+    if own is not None:
+        return own(spec)
     spec = copy.copy(spec)
     if spec.traffic["driver"] == "queries":
         return spec, Bf16Sssp

@@ -2,11 +2,13 @@
 fixpoint, each waited for until its distances are on the device.
 
 The traffic file gives ``sources`` (how many sources are drawn, among
-vertices with at least one out-edge), ``warm_up`` queries and
-``trace_requests`` (the queries of the traced stretch).  The set of
-sources is drawn from the configuration's structure seed, so that every
-run asks the same queries; the run's seed sets their order, a new order
-each pass over the set.  A query's work (its iterations) follows the edge
+vertices with at least one out-edge), ``warm_up`` queries,
+``trace_requests`` (the queries of the traced stretch) and ``masked``
+(default false): ``SSSP.run(source, masked=True)``, sparse
+Bellman-Ford, streams only the tiles the last step's changed distances
+can touch.  The set of sources is drawn from the configuration's
+structure seed, so that every run asks the same queries; the run's seed
+sets their order, a new order each pass over the set.  A query's work (its iterations) follows the edge
 weights, so they too are the graph's, drawn from the structure seed in
 place of the run's: with weights from the run's seed, the tail moved with
 the seed far more than between two runs of one seed.  A window holds several passes, so that every
@@ -47,12 +49,14 @@ class Cell:
         rng = np.random.default_rng(subseed(seed, "sources"))
         self.sources = np.concatenate([rng.permutation(chosen)
                                        for _ in range(PASSES)])
+        self.masked = bool(traffic.get("masked", False))
         self.app = None
         self.watch = Stopwatch(self.device)
 
     def prepare(self) -> None:
         """From the CSR matrix in host memory to an app on the card: the
-        transpose, its pack, the combine tree and the upload."""
+        transpose, its pack, the plan of the fold into rank order and the
+        upload."""
         from hisparse_tpu_torch import CSRMatrix, SpmvConfig
         from hisparse_tpu_torch.models.apps import SSSP
         c = self.csr
@@ -63,22 +67,26 @@ class Cell:
 
     def counters(self) -> dict:
         return {"fill": self.app.wp.fill,
-                "main_tiles": self.app.wp.num_tiles,
-                "combine_tiles": sum(wp.num_tiles
-                                     for wp, _ in self.app.combine)}
+                "main_tiles": self.app.wp.num_tiles}
 
     def request(self, i: int):
         """One query, waited for: ``(key, output, ops, enqueue seconds,
-        seconds)``; the key is ``(source, iterations)``."""
+        seconds)``; the key is ``(source, iterations)``, and a masked
+        query's ``(source, iterations, tiles streamed)``.  Its operations
+        are 2 nnz an iteration, masked or not."""
         src = int(self.sources[i % len(self.sources)])
-        d, enq, secs = self.watch.time(lambda: self.app.run(src))
+        d, enq, secs = self.watch.time(
+            lambda: self.app.run(src, masked=self.masked))
         iters = self.app.iters_run
-        return (src, iters), d, work.csr_ops(self.csr.nnz) * iters, enq, secs
+        key = (src, iters)
+        if self.masked:
+            key += (sum(self.app.tiles_streamed),)
+        return key, d, work.csr_ops(self.csr.nnz) * iters, enq, secs
 
     def bound_s(self, peak: dict, requests) -> float:
         c = self.csr
         one = work.bound_s(c.num_rows, c.num_cols, c.nnz, 1, peak)
-        return one * sum(iters for _, iters in requests)
+        return one * sum(key[1] for key in requests)
 
     def warm_up(self) -> None:
         for i in range(int(self.traffic["warm_up"])):
@@ -88,10 +96,11 @@ class Cell:
         self.app = None
 
     def check(self, samples) -> list:
-        """``rel_err`` of each kept ``((source, iterations), distances)``."""
+        """``rel_err`` of each kept ``(key, distances)``; the key starts
+        with the source."""
         g = ref_sssp.Graph(self.csr, self.device)
-        return [ref_sssp.rel_err(d, g.distances(src))
-                for (src, _), d in samples]
+        return [ref_sssp.rel_err(d, g.distances(key[0]))
+                for key, d in samples]
 
 
 def size_of(key) -> int:

@@ -6,7 +6,7 @@ each nonzero's value and column index read once (4 B + 4 B), the row
 pointer once ((rows + 1) * 4 B), x read once (cols * F * 4 B) and y written
 once (rows * F * 4 B); 2 operations a nonzero and feature (a multiply and
 an add, or an add and a min).  A pack's padding slots, its split rows and
-its combine tree are the program's overhead, not work.
+the fold of their partials are the program's overhead, not work.
 """
 from __future__ import annotations
 

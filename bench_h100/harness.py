@@ -182,8 +182,10 @@ def run_cell(spec: Spec, seed: int, seconds: float, traced: bool,
                       device)
     else:
         start, rec = _window(cell, seconds, sample)
-        rec.update(prepare_s=prepare_s, setup_s=start - t_process)
-    rec.update(driver=spec.traffic["driver"], counters=counters)
+        rec.update(setup_s=start - t_process)
+    # the prepare runs before any profiler starts: untraced either way
+    rec.update(driver=spec.traffic["driver"], counters=counters,
+               prepare_s=prepare_s)
     kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     if traced and device.type == "cuda":

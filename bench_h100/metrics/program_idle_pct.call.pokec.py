@@ -1,0 +1,2 @@
+"""The device idle while the host is inside a call span, pokec cells."""
+from bench_h100.spans import program_idle_pct as read  # noqa: F401

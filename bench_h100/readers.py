@@ -37,8 +37,7 @@ query_ms_p95 = _p95_ms("queries")
 
 def prepare_s(rec):
     """Host seconds from the CSR matrix in host memory to an operator (or
-    app) ready on the card: pack, plans, combine tree and upload,
-    synchronized."""
+    app) ready on the card: pack, plans and upload, synchronized."""
     return rec.get("prepare_s")
 
 
@@ -55,14 +54,17 @@ def fill_pct(rec):
     return None if fill is None else 100.0 * fill
 
 
-def combine_tile_ratio(rec):
-    """Tiles of the app's combine packs over the tiles of its main pack
-    (program counters): how much the combine tree streams beside the
-    product."""
-    c = rec["counters"]
-    if "combine_tiles" not in c or not c.get("main_tiles"):
+def tile_pct(rec):
+    """The tiles the masked queries streamed (``SSSP.tiles_streamed``, a
+    program counter, the third item of a masked query's key) over their
+    iterations times the pack's tiles, in percent: the share of the
+    dense stream that the frontier's tile selection reads."""
+    keys = [k for k in rec.get("keys", ()) if len(k) > 2]
+    tiles = rec["counters"].get("main_tiles")
+    if not keys or not tiles:
         return None
-    return c["combine_tiles"] / c["main_tiles"]
+    return 100.0 * sum(k[2] for k in keys) / (sum(k[1] for k in keys)
+                                              * tiles)
 
 
 def request_roofline(rec):

@@ -22,8 +22,11 @@ and no link, and its own correlation id names its runtime call
 (``cudaLaunchKernel`` and kin), which serves in its place.  The launching
 event's start, on its thread, lies inside the spans of the chain.
 
-With ``--workload`` this module runs a cell as ``run.py --trace 1`` does
-and prints the readers' values beside the result line's metrics:
+``trace.read`` adds both to the traced run's record, and the readers
+below are metrics of ``BENCHMARK.json`` (``metrics/<name>.py``).  With
+``--workload`` this module runs a cell as ``run.py --trace 1`` does and
+prints every reader's value, and the share of busy time each span tree
+accounts for, beside the result line:
 
     python3 -m bench_h100.spans --workload googleplus-spmv --seed 7
 """
@@ -159,8 +162,8 @@ stripe_fold_us = _per_request_us("hisparse.stripe_fold")
 
 
 def combine_ms(rec):
-    """Device milliseconds a traced query in the combine tree
-    (``hisparse.combine``: the selection SpMVs and their layout moves)."""
+    """Device milliseconds a traced query in the fold of the app's renamed
+    y into rank order (``hisparse.combine``, ``_App._fold``)."""
     if rec["driver"] != "queries" or not _has(rec):
         return None
     return _device_us_under(rec, ("hisparse.combine",)) / rec[
@@ -259,13 +262,11 @@ def main(argv=None) -> int:
     kept = {}
     read_trace = trace.read
 
-    def read_both(prof):
-        rec = read_trace(prof)
-        rec.update(read(prof))
-        kept["rec"] = rec
-        return rec
+    def keep(prof):
+        kept["rec"] = read_trace(prof)
+        return kept["rec"]
 
-    trace.read = read_both
+    trace.read = keep
     try:
         line = harness.run_cell(spec, args.seed, 0.0, True, "cuda:0")
     finally:

@@ -289,3 +289,14 @@ def test_tiny_cells_run_on_cuda(tmp_path):
         r = harness.run_cell(spec, 9, 0.5, True, "cuda:0")
         assert r["correct"], (w["name"], r["compared"])
         assert r["device"]["busy_s"] > 0
+
+
+def test_sssp_prepare_is_read_per_layer(tmp_path):
+    """``prepare_s`` is end to end only in ``pokec-spmv``; the SSSP cells,
+    whose prepare the host's speed spreads too widely for a bound, read it
+    per layer as ``prepare_s.sssp``, in traced runs too."""
+    bench = tiny_bench(tmp_path)
+    traced = run(bench, "pokec-sssp", traced=True)
+    assert traced["metrics"]["prepare_s.sssp"]["value"] > 0
+    assert "prepare_s" not in run(bench, "pokec-sssp-masked")["metrics"]
+    assert run(bench, "pokec-spmv")["metrics"]["prepare_s"]["value"] > 0

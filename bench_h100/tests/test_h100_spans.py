@@ -147,24 +147,24 @@ def test_combine_and_host_time_of_an_iteration():
     assert spans.xt_us(rec) is None
 
 
-def _fake_prof(evs):
-    """A profile whose ``events()`` are ``prof.events()``-like records of
-    ``evs``, as ``trace.read`` takes them."""
+def _prof_events(evs):
+    """``prof.events()``-like records of ``evs``, as ``trace.device_work``
+    takes them."""
     def fe(e):
         return types.SimpleNamespace(
             name=e.name, is_user_annotation=e.annotation,
             time_range=types.SimpleNamespace(start=e.start, end=e.end),
             device_type=(torch.autograd.DeviceType.CUDA if e.device
                          else torch.autograd.DeviceType.CPU))
-    return types.SimpleNamespace(events=lambda: [fe(e) for e in evs])
+    return [fe(e) for e in evs]
 
 
 def test_trace_read_is_unchanged_by_spans():
     """``trace.read``'s device work and window are the same with the
     program's spans and their device mirrors as without them."""
     evs = call_trace()
-    with_spans = trace.read(_fake_prof(evs))
-    without = trace.read(_fake_prof(
+    with_spans = trace.device_work(_prof_events(evs))
+    without = trace.device_work(_prof_events(
         [e for e in evs if not e.name.startswith("hisparse.")]))
     for key in ("window_s", "busy_s", "device"):
         assert with_spans[key] == without[key]
@@ -176,7 +176,8 @@ def test_trace_read_is_unchanged_by_spans():
 
 def test_read_on_a_cpu_profile():
     """``read`` takes the profiler's own events: spans recorded under a
-    CPU profile nest, and no device interval is there."""
+    CPU profile nest, and no device interval is there; ``trace.read``
+    adds them to the traced record."""
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         with record_function(trace.WINDOW):
             with record_function("hisparse.step"):
@@ -187,3 +188,7 @@ def test_read_on_a_cpu_profile():
         ("hisparse.step", -1), ("hisparse.sync", 0)]
     assert rec["device_spans"] == []
     assert 0 <= rec["spans"][0][0] <= rec["spans"][1][0]
+    # the traced run's record holds them beside the device work
+    traced = trace.read(prof)
+    assert traced["spans"] == rec["spans"]
+    assert traced["busy_s"] == 0 and traced["device"] == []

@@ -1,7 +1,9 @@
 """What the traced run reads from ``torch.profiler``: the device's activity
 (kernels, copies, sets) inside the traced window, its union, the device
 operations that took most time and the longest idle gaps, each labelled by
-the innermost host operation running at its middle."""
+the innermost host operation running at its middle; and the program's
+``hisparse.*`` spans with the device work launched under each
+(``spans.py``)."""
 from __future__ import annotations
 
 import bisect
@@ -19,10 +21,20 @@ LOOK_BACK = 512
 
 
 def read(prof) -> dict:
+    """:func:`device_work` of the profile's events, with ``spans`` and
+    ``device_spans`` (``spans.read``)."""
+    from bench_h100 import spans     # spans.py imports this module
+    rec = device_work(prof.events())
+    rec.update(spans.read(prof))
+    return rec
+
+
+def device_work(events) -> dict:
     """``window_s``, ``busy_s``, ``device`` (the device intervals inside the
-    window, as ``(start_us, end_us, name)``) and ``breakdown``."""
+    window, as ``(start_us, end_us, name)``) and ``breakdown``, from the
+    profiler's ``events()``."""
     dev, host, window = [], [], None
-    for e in prof.events():
+    for e in events:
         iv = (e.time_range.start, e.time_range.end, e.name)
         if e.device_type == torch.autograd.DeviceType.CUDA:
             # a span's mirror on the device timeline is no device work
