@@ -85,7 +85,15 @@ Phases, in order; any failure raises and exits non-zero:
      fold of A-hat's F = 16 renamed rows in both layouts ((n, F), as the
      natural-order matmul folds them, and (F, n)) beside index_add_, and
      the natural-order matmul at F = 16 (SpMM, stripe fold, fold), its
-     output a contiguous (n, 16).
+     output a contiguous (n, 16).  Then a GCN on a symmetric graph
+     (APPS_100K's matrix made undirected), widths SYM_GCN_DIMS, dropout
+     0.5: one pack serves both directions (agg.opT is agg.op), one
+     training step's kernel launches by direction are the chunks of its
+     widths (DiffSpmm.launches_fwd / launches_bwd), its backward products
+     A^T G at F = 47 and 8 within 1e-6 of float64, and the step's loss
+     and gradients within 1e-3 (normwise) of the plain reference's
+     float64 step (hisparse_tpu_torch/reference/gcn.py) on the same
+     dropout masks.
 
   8. the graph apps at the suite's sizes (bench.py:736-800): PageRank
      (20 iterations) and BFS (from vertex 0, dense and masked) on
@@ -215,6 +223,17 @@ from hisparse_tpu_torch.utils.bench import (APPS_100K, BCSR16K, BCSR_RHS,
 T70_CFG_T = dict(T70_CFG, stripes=512)
 T70_STEPS, T70_LR = 5, 5e-5
 GCN_STEPS, GCN_LR = 3, 0.5
+# the symmetric GCN of phase 7: forward products at F = 20, 47, 8 (2 + 3 +
+# 1 launches of at most SPMM_MAX_F features), backward at 47, 8 (3 + 1)
+SYM_GCN_DIMS = [20, 47, 47, 8]
+SYM_GCN_LAUNCHES = (6, 4)
+# normwise against float64: a backward product sums a row's few dozen
+# fp32 terms (as tests/test_torch_gcn_train.py holds matmul); a step's
+# layer-1 gradients sum 10,000 training nodes' random-label terms that
+# nearly cancel, so their rounding reads far above it (5.2e-5 for w0 on
+# an H100, where w1 and w2 read 2e-7)
+TOL_SYM_PRODUCT = 1e-6
+TOL_SYM_STEP = 1e-3
 PR_ITERS = 20                 # PageRank's iterations on APPS_100K
 MASKED_ACTIVE = 40            # active columns of the phase-5 masked cases
 # the dispatch rows (bench.py:533-537, :677-679, :897-921): the pruned-NN
@@ -1275,12 +1294,85 @@ def phase_gcn(dev, kernels, m):
     rec_fold["gcn_step_ms"] = prof["ms"]
     print(f"time gcn A-hat matmul F=16, natural order (SpMM, stripe fold, "
           f"fold) {rec_fold['matmul_natural_ms']:.4f} ms", flush=True)
+    gcn_symmetric_check(dev)
     return {"max_abs_err": max_abs, "ms": ms_k, "plain_ms": ms_p, **b_s,
             "library_ms": ms_cs, "gcn_step_ms": prof["ms"],
             "step_idle_share": prof["idle_share"],
             "instantiation": instantiation(kernels, "wavepack_spmm",
                                            gcn.agg.op, Fp=16)}, \
         rec_fold, launches, (gcn, X, labels)
+
+
+def gcn_symmetric_check(dev) -> None:
+    """Phase 7's GCN on a symmetric graph: one pack, the launches by
+    direction, a training step against the float64 reference."""
+    import scipy.sparse as sp
+    import torch
+    from hisparse_tpu_torch import GCN, CSRMatrix, SpmvConfig, powerlaw_csr
+    from hisparse_tpu_torch.reference import gcn as ref
+    a = powerlaw_csr(*APPS_100K["shape"], alpha=APPS_100K["alpha"],
+                     seed=APPS_100K["seed"]).to_scipy()
+    a = (a + a.T).tocsr()
+    a.setdiag(0)
+    a.eliminate_zeros()
+    a.data[:] = 1.0
+    adj = CSRMatrix.from_scipy(a.astype(np.float32))
+    t0 = time.perf_counter()
+    gcn = GCN(adj, SYM_GCN_DIMS, SpmvConfig(), device=dev, seed=0,
+              dropout=0.5, col_order="degree")
+    n = gcn.num_nodes
+    print(f"gcn symmetric: {n} nodes, {adj.nnz} entries; normalize, check "
+          f"and pack {time.perf_counter() - t0:.1f} s; symmetric "
+          f"{gcn.agg.symmetric}, tiles {gcn.agg.wp.num_tiles}", flush=True)
+    check(gcn.agg.symmetric and gcn.agg.opT is gcn.agg.op
+          and gcn.agg.wpT is gcn.agg.wp,
+          "the symmetric GCN built a second pack")
+    rng = np.random.default_rng(8)
+    X = torch.from_numpy(rng.standard_normal(
+        (n, SYM_GCN_DIMS[0])).astype(np.float32)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, SYM_GCN_DIMS[-1], n)).to(dev)
+    train = torch.from_numpy(np.sort(rng.permutation(n)[:n // 10])).to(dev)
+    g = torch.Generator(device=dev).manual_seed(9)
+    state = g.get_state()
+    gcn.zero_grad()
+    loss = torch.nn.functional.nll_loss(torch.log_softmax(
+        gcn(X, generator=g), dim=-1)[train], labels[train])
+    loss.backward()
+    torch.cuda.synchronize()
+    launches = (gcn.agg.launches_fwd, gcn.agg.launches_bwd)
+    g.set_state(state)
+    a64 = ref.Adjacency(n, adj.indptr, adj.indices, adj.data, dev)
+    want_loss, want = ref.loss_and_grads(a64, gcn.params(), X, labels,
+                                         train, 0.5, g)
+
+    def normwise(x, y) -> float:
+        return float((x.double() - y).norm() / y.norm())
+
+    # the backward product itself, A^T G through the forward's pack, at
+    # the step's backward widths
+    prod = {}
+    for F in SYM_GCN_DIMS[2:]:
+        H = torch.zeros(n, F, device=dev, requires_grad=True)
+        G = torch.from_numpy(rng.standard_normal((n, F)).astype(
+            np.float32)).to(dev)
+        (got,) = torch.autograd.grad(gcn.agg(H), H, G)
+        prod[f"A^T G F={F}"] = normwise(got, a64.AT @ G.double())
+    step = {"loss": normwise(loss.detach(), want_loss)}
+    for i, (w, b) in enumerate(zip(gcn.w, gcn.b)):
+        step[f"w{i}"] = normwise(w.grad, want[i]["w"])
+        step[f"b{i}"] = normwise(b.grad, want[i]["b"])
+    print(f"gcn symmetric step: launches (fwd, bwd) {launches}; backward "
+          f"products vs f64 (gate {TOL_SYM_PRODUCT}): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in prod.items())
+          + f"; loss and gradients vs f64 (gate {TOL_SYM_STEP}): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in step.items()), flush=True)
+    check(launches == SYM_GCN_LAUNCHES,
+          f"the symmetric GCN step's launches {launches}")
+    check(max(prod.values()) <= TOL_SYM_PRODUCT,
+          f"the symmetric GCN's backward products vs f64 {prod}")
+    check(max(step.values()) <= TOL_SYM_STEP,
+          f"the symmetric GCN step vs f64 {step}")
+    del gcn
 
 
 def levels_reference(m, source: int) -> np.ndarray:

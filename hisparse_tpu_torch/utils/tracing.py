@@ -19,7 +19,13 @@ operator call, ``hisparse.x`` (x to XT) and ``hisparse.stripe_fold``
 inside it; ``hisparse.step`` around an app iteration, ``hisparse.sync``
 (its host read) and ``hisparse.combine`` (the fold of hub-split
 partials into rank order) inside it;
-``hisparse.pack.*`` around the pack's phases.
+``hisparse.pack.*`` around the pack's phases.  The GCN
+(``models/gnn.py``) adds ``hisparse.gcn.layer`` around each layer's
+forward, with ``hisparse.gcn.agg`` (a forward aggregation, its
+``hisparse.matmul`` inside) and ``hisparse.gcn.dropout`` in it, and
+``hisparse.gcn.agg_grad`` around each backward aggregation.  Autograd runs
+a CUDA backward on a thread of its own, which the profiler's state
+follows: ``agg_grad`` spans nest by time on that thread.
 """
 from __future__ import annotations
 
