@@ -41,8 +41,9 @@ Phases, in order; any failure raises and exits non-zero:
      clocks.max.sm);
   5. on the same families, the gradient-stream kernel against its plain
      version (max|d| <= 1e-6 of max|out|) and the SpMM kernel against its
-     plain version at F = 1, 5 and 16 (max|d|/max|Y| <= 1e-6; the bf16
-     stream at F = 1, 3, 5, 8 and 16 bit for bit); on the
+     plain version at F = 1, 5 and 16 (max|d|/max|Y| <= 1e-6) and, through
+     the wide instantiation, at F = 20, 36, 48 and 64 bit for bit (the
+     bf16 stream at F = 1, 3, 5, 8 and 16 bit for bit); on the
      min_plus and max_times families the SpMV kernel bit for bit against
      its plain version and within 1e-4 of the float64 oracle, SpMM at F = 5
      bit for bit; on every fp32 family in each semiring its config allows,
@@ -85,11 +86,18 @@ Phases, in order; any failure raises and exits non-zero:
      fold of A-hat's F = 16 renamed rows in both layouts ((n, F), as the
      natural-order matmul folds them, and (F, n)) beside index_add_, and
      the natural-order matmul at F = 16 (SpMM, stripe fold, fold), its
-     output a contiguous (n, 16).  Then a GCN on a symmetric graph
+     output a contiguous (n, 16).  The SpMM kernel on A-hat at F = 64
+     (the wide instantiation) bit for bit against its plain version;
+     matmul at F = 100 (launches of 64 and 36 features) bit for bit the
+     same features taken 16 at a time, the wide launches counted
+     (``_kernels.spmm_wide_launches``), and one wide launch timed beside
+     the four kF = 16 launches of the same 64 features.  Then a GCN on a
+     symmetric graph
      (APPS_100K's matrix made undirected), widths SYM_GCN_DIMS, dropout
      0.5: one pack serves both directions (agg.opT is agg.op), one
      training step's kernel launches by direction are the chunks of its
-     widths (DiffSpmm.launches_fwd / launches_bwd), its backward products
+     widths (DiffSpmm.launches_fwd / launches_bwd; the wide ones those of
+     chunks over 16 features), its backward products
      A^T G at F = 47 and 8 within 1e-6 of float64, and the step's loss
      and gradients within 1e-3 (normwise) of the plain reference's
      float64 step (hisparse_tpu_torch/reference/gcn.py) on the same
@@ -215,6 +223,7 @@ import time
 import numpy as np
 
 # the full-size design points, shared with the A/B tools
+from hisparse_tpu_torch.ops.spmv import SPMM_MAX_F
 from hisparse_tpu_torch.utils.bench import (APPS_100K, BCSR16K, BCSR_RHS,
                                             GCN_DIMS, GOOGLEPLUS,
                                             GOOGLEPLUS_CFG, GOOGLEPLUS_PACK,
@@ -223,16 +232,31 @@ from hisparse_tpu_torch.utils.bench import (APPS_100K, BCSR16K, BCSR_RHS,
 T70_CFG_T = dict(T70_CFG, stripes=512)
 T70_STEPS, T70_LR = 5, 5e-5
 GCN_STEPS, GCN_LR = 3, 0.5
-# the symmetric GCN of phase 7: forward products at F = 20, 47, 8 (2 + 3 +
-# 1 launches of at most SPMM_MAX_F features), backward at 47, 8 (3 + 1)
+# the symmetric GCN of phase 7: forward products at F = 20, 47, 8,
+# backward at 47, 8, a launch a chunk of at most SPMM_MAX_F features
 SYM_GCN_DIMS = [20, 47, 47, 8]
-SYM_GCN_LAUNCHES = (6, 4)
+SYM_GCN_FWD, SYM_GCN_BWD = (20, 47, 8), (47, 8)
+
+
+def chunks(widths, narrow: bool | None = None) -> int:
+    """The SpMM launches of products at ``widths``: a chunk of at most
+    SPMM_MAX_F features a launch; with ``narrow`` False only the chunks
+    over 16 features, the wide instantiation's."""
+    sizes = [min(SPMM_MAX_F, f - f0) for f in widths
+             for f0 in range(0, f, SPMM_MAX_F)]
+    return sum(1 for c in sizes if narrow is None or (c <= 16) == narrow)
+
+
+SYM_GCN_LAUNCHES = (chunks(SYM_GCN_FWD), chunks(SYM_GCN_BWD))
 # normwise against float64: a backward product sums a row's few dozen
 # fp32 terms (as tests/test_torch_gcn_train.py holds matmul); a step's
 # layer-1 gradients sum 10,000 training nodes' random-label terms that
 # nearly cancel, so their rounding reads far above it (5.2e-5 for w0 on
 # an H100, where w1 and w2 read 2e-7)
 TOL_SYM_PRODUCT = 1e-6
+# the feature counts at which phase 5 holds the wide SpMM instantiation
+# bit for bit against its plain version
+WIDE_FS = (20, 36, 48, 64)
 TOL_SYM_STEP = 1e-3
 PR_ITERS = 20                 # PageRank's iterations on APPS_100K
 MASKED_ACTIVE = 40            # active columns of the phase-5 masked cases
@@ -333,7 +357,7 @@ def print_kernel_info(kernels) -> None:
             ("wavepack_spmv", 1, 1), ("wavepack_spmv", 1, 64),
             ("wavepack_spmv_masked", 1, 1), ("wavepack_spmv_masked", 1, 64),
             ("wavepack_spmm", 4, 1), ("wavepack_spmm", 8, 1),
-            ("wavepack_spmm", 16, 1)):
+            ("wavepack_spmm", 16, 1), ("wavepack_spmm", SPMM_MAX_F, 1)):
         for sr, dtype in (("plus_times", "fp32"), ("max_times", "fp32"),
                           ("min_plus", "fp32"), ("plus_times", "bf16"),
                           ("plus_times", "fixed")):
@@ -814,21 +838,28 @@ def phase_kernel_families(dev) -> tuple:
         e_g = float((out_k - out_p).abs().max()) / max(
             float(out_p.abs().max()), 1e-30)
         worst_g = max(worst_g, e_g)
-        e_s = []
-        for F in (1, 5, 16):
+        e_s, wide = [], []
+        for F in (1, 5, 16) + WIDE_FS:
             X = torch.from_numpy(rng.standard_normal(
                 (wp.num_cols, F)).astype(np.float32)).to(dev)
             sargs = (op.vals, op.idxT, op.tile_part, op.class_map,
                      op.run_start, op.run_end,
                      build_xt_multi(X, cfg, wp.n_parts), cfg)
-            e_s.append(rel_err(to_np(wavepack_spmm(*sargs, F=F)),
-                               to_np(spmm_tiles_plain(*sargs, F=F))))
+            acc_k = wavepack_spmm(*sargs, F=F)
+            acc_p = spmm_tiles_plain(*sargs, F=F)
+            if F in WIDE_FS:
+                wide.append(exact(acc_k, acc_p))
+            else:
+                e_s.append(rel_err(to_np(acc_k), to_np(acc_p)))
         worst_s = max(worst_s, *e_s)
         print(f"family {fam[0]:18s} gradstream kernel-vs-plain {e_g:.3e}  "
               "spmm kernel-vs-plain F=1/5/16 "
-              + " / ".join(f"{e:.3e}" for e in e_s), flush=True)
+              + " / ".join(f"{e:.3e}" for e in e_s)
+              + f"; kernel==plain F={'/'.join(map(str, WIDE_FS))} {wide}",
+              flush=True)
         check(e_g <= TOL_PLAIN, f"{fam[0]}: gradstream kernel vs plain {e_g}")
         check(max(e_s) <= TOL_PLAIN, f"{fam[0]}: spmm kernel vs plain {e_s}")
+        check(all(wide), f"{fam[0]}: wide spmm kernel vs plain {wide}")
     # the bf16 stream through the SpMM kernel, bit for bit
     fam = next(f for f in PLUS_TIMES_FAMILIES if f[1].get("dtype") == "bf16")
     _, wp, _ = family_case(fam)
@@ -1294,16 +1325,63 @@ def phase_gcn(dev, kernels, m):
     rec_fold["gcn_step_ms"] = prof["ms"]
     print(f"time gcn A-hat matmul F=16, natural order (SpMM, stripe fold, "
           f"fold) {rec_fold['matmul_natural_ms']:.4f} ms", flush=True)
-    gcn_symmetric_check(dev)
+    rec_wide = wide_spmm_check(dev, kernels, gcn.agg.op)
+    gcn_symmetric_check(dev, kernels)
     return {"max_abs_err": max_abs, "ms": ms_k, "plain_ms": ms_p, **b_s,
             "library_ms": ms_cs, "gcn_step_ms": prof["ms"],
             "step_idle_share": prof["idle_share"],
             "instantiation": instantiation(kernels, "wavepack_spmm",
-                                           gcn.agg.op, Fp=16)}, \
-        rec_fold, launches, (gcn, X, labels)
+                                           gcn.agg.op, Fp=16),
+            "wide": rec_wide}, rec_fold, launches, (gcn, X, labels)
 
 
-def gcn_symmetric_check(dev) -> None:
+def wide_spmm_check(dev, kernels, op) -> dict:
+    """The wide SpMM instantiation on phase 7's A-hat: the kernel at F =
+    64 bit for bit against its plain version, matmul at F = 100 bit for
+    bit the features taken 16 at a time, the wide launches counted, and
+    one wide launch timed beside the four kF = 16 launches of the same
+    64 features; returns the times."""
+    import torch
+    from hisparse_tpu_torch.ops.spmv import (build_xt_multi,
+                                             spmm_tiles_plain, wavepack_spmm)
+    from hisparse_tpu_torch.utils.bench import device_time_ms
+    n = op.wp.num_cols
+    H = torch.from_numpy(np.random.default_rng(29).standard_normal(
+        (n, 100)).astype(np.float32)).to(dev)
+    stream = (op.vals, op.idxT, op.tile_part, op.class_map, op.run_start,
+              op.run_end)
+    Hp = H if op.col_order is None else H[op.col_order]
+    xt = build_xt_multi(Hp[:, :SPMM_MAX_F], op.cfg, op.wp.n_parts)
+    ok_plain = exact(wavepack_spmm(*stream, xt, op.cfg),
+                     spmm_tiles_plain(*stream, xt, op.cfg))
+    wide0, all0 = kernels.spmm_wide_launches, kernels.spmm_launches
+    Y = op.matmul(H)
+    n_wide = kernels.spmm_wide_launches - wide0
+    n_all = kernels.spmm_launches - all0
+    Y16 = torch.cat([op.matmul(H[:, f0:f0 + 16]) for f0 in range(0, 100, 16)],
+                    dim=1)
+    ok_chunks = exact(Y, Y16)
+    xts = [build_xt_multi(Hp[:, f0:f0 + 16], op.cfg, op.wp.n_parts)
+           for f0 in range(0, SPMM_MAX_F, 16)]
+    ms_wide = device_time_ms(lambda: wavepack_spmm(*stream, xt, op.cfg),
+                             reps=20, queued=True)
+    ms_16 = device_time_ms(lambda: [wavepack_spmm(*stream, x, op.cfg)
+                                    for x in xts], reps=20, queued=True)
+    info = instantiation(kernels, "wavepack_spmm", op, Fp=SPMM_MAX_F)
+    print(f"wide spmm A-hat F={SPMM_MAX_F}: kernel==plain {ok_plain}; "
+          f"matmul F=100 == 16-feature chunks {ok_chunks}, launches {n_all} "
+          f"(wide {n_wide}); time one kF={SPMM_MAX_F} launch "
+          f"{ms_wide:.4f} ms, four kF=16 launches {ms_16:.4f} ms; "
+          f"{info}", flush=True)
+    check(ok_plain, "wide spmm kernel vs plain not bit-equal")
+    check(ok_chunks, "matmul at F = 100 differs from 16-feature chunks")
+    check((n_all, n_wide) == (chunks([100]), chunks([100], narrow=False)),
+          f"matmul at F = 100: launches {n_all}, wide {n_wide}")
+    check(info["local_bytes"] == 0, f"the wide spmm spills: {info}")
+    return {"wide_ms": ms_wide, "four_kf16_ms": ms_16, **info}
+
+
+def gcn_symmetric_check(dev, kernels) -> None:
     """Phase 7's GCN on a symmetric graph: one pack, the launches by
     direction, a training step against the float64 reference."""
     import scipy.sparse as sp
@@ -1335,11 +1413,13 @@ def gcn_symmetric_check(dev) -> None:
     g = torch.Generator(device=dev).manual_seed(9)
     state = g.get_state()
     gcn.zero_grad()
+    wide0 = kernels.spmm_wide_launches
     loss = torch.nn.functional.nll_loss(torch.log_softmax(
         gcn(X, generator=g), dim=-1)[train], labels[train])
     loss.backward()
     torch.cuda.synchronize()
     launches = (gcn.agg.launches_fwd, gcn.agg.launches_bwd)
+    wide = kernels.spmm_wide_launches - wide0
     g.set_state(state)
     a64 = ref.Adjacency(n, adj.indptr, adj.indices, adj.data, dev)
     want_loss, want = ref.loss_and_grads(a64, gcn.params(), X, labels,
@@ -1361,13 +1441,16 @@ def gcn_symmetric_check(dev) -> None:
     for i, (w, b) in enumerate(zip(gcn.w, gcn.b)):
         step[f"w{i}"] = normwise(w.grad, want[i]["w"])
         step[f"b{i}"] = normwise(b.grad, want[i]["b"])
-    print(f"gcn symmetric step: launches (fwd, bwd) {launches}; backward "
+    print(f"gcn symmetric step: launches (fwd, bwd) {launches}, wide "
+          f"{wide}; backward "
           f"products vs f64 (gate {TOL_SYM_PRODUCT}): "
           + ", ".join(f"{k} {v:.2e}" for k, v in prod.items())
           + f"; loss and gradients vs f64 (gate {TOL_SYM_STEP}): "
           + ", ".join(f"{k} {v:.2e}" for k, v in step.items()), flush=True)
     check(launches == SYM_GCN_LAUNCHES,
           f"the symmetric GCN step's launches {launches}")
+    check(wide == chunks(SYM_GCN_FWD + SYM_GCN_BWD, narrow=False),
+          f"the symmetric GCN step's wide launches {wide}")
     check(max(prod.values()) <= TOL_SYM_PRODUCT,
           f"the symmetric GCN's backward products vs f64 {prod}")
     check(max(step.values()) <= TOL_SYM_STEP,

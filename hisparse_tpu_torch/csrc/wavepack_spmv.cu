@@ -1,5 +1,5 @@
 // Wavepack SpMV, SpMM and masked SpMV for Hopper (sm_90a): semiring
-// products over a packed tile stream, for one vector (SpMV), up to kMaxF
+// products over a packed tile stream, for one vector (SpMV), up to kWideF
 // feature columns (SpMM) in one pass, or one vector over a selected subset
 // of the tiles (the masked SpMSpV analog).  Stream values are fp32, bf16
 // (widened to fp32 on load) or saturating unsigned Q8.24.
@@ -14,8 +14,8 @@
 // (models/apps.py).  Resident versus paged was a VMEM budget of the TPU;
 // here one kernel serves single- and multi-partition packs.  SpMV is SpMM
 // at one feature and the masked SpMV is SpMV over a list of tiles: one
-// kernel body, instantiated at kF = 1 for SpMV, at kF = 4, 8 or 16 for
-// SpMM and with kMasked for the masked call.
+// kernel body, instantiated at kF = 1 for SpMV, at kF = 4, 8, 16 or 64
+// for SpMM and with kMasked for the masked call.
 //
 // What it computes.  For every feature f < F and accumulator slot
 // (b, s, l) of row block b:
@@ -47,7 +47,8 @@
 // Mapping.  One thread per accumulator slot: a CTA owns kR consecutive
 // sublanes of one row block (kR * 128 threads, lane l fastest) and walks
 // that block's run: kR = 8 for SpMV and the masked SpMV when the pack
-// gives more than 1.5 such CTAs an SM, else 4 (pick()), and 4 for SpMM.  No
+// gives more than 1.5 such CTAs an SM, else 4 (pick()), and kWideFRows
+// for SpMM at kF = 64, 4 at its narrower widths.  No
 // atomics, the same result every run, and each slot folds its terms in
 // the TPU's sequential grid order.  The thread routes its slot once per
 // tile and keeps kF accumulators in registers, so each feature folds its
@@ -55,15 +56,16 @@
 // chunks the features.  The masked call reads only the selected tiles: a
 // skipped tile costs no device-memory traffic.
 //
-// The tile pipeline.  A ring of kStepsAhead + 1 tiles in shared memory;
-// each stage holds what the CTA reads of one tile: its kR sublanes'
-// values, the 128 x kR transposed idx words its crossbar lookups read, the
-// group's class_map row, the partition id and, for the masked call, the
-// tile id kStepsAhead further on.  The first warps copy the values and the
-// next the idx rows in 16-byte cp.async chunks (8 bytes for idx16 at kR =
-// 4), one more the small words; the tile ids of the masked run travel
-// ahead in the ring, so no thread waits on a global load to address a
-// copy.  Tiles i+1 .. i+kStepsAhead are in flight while tile i is folded,
+// The tile pipeline.  A ring of kAhead + 1 tiles in shared memory
+// (kAhead = kStepsAhead, or kWideFAhead at kF = 64); each stage holds what
+// the CTA reads of one tile: its kR sublanes' values, the 128 x kR
+// transposed idx words its crossbar lookups read, the group's class_map
+// row, the partition id and, for the masked call, the tile id kAhead
+// further on.  The first warps copy the values and the next the idx rows
+// in cp.async chunks of up to 16 bytes (kR * 2 or kR * 4 bytes a row),
+// one more the small words; the tile ids of the masked run travel ahead
+// in the ring, so no thread waits on a global load to address a copy.
+// Tiles i+1 .. i+kAhead are in flight while tile i is folded,
 // and one barrier a tile both publishes tile i and frees the stage the
 // next copy reuses.  A tile's critical path is shared-memory reads, one
 // gather of x and the fold: no device-memory round trip.
@@ -101,7 +103,19 @@
 // feature a load cost a sector each), so the gathers' sectors, 64 B a
 // slot at F = 16 against 6 B of stream, set its time; XT is Fp * CT * 64
 // KB a partition and stays in L2.  __launch_bounds__(512, 2) gives its 16
-// accumulators room (52-61 registers, 2 CTAs of 4 sublanes an SM).
+// accumulators room (52-61 registers, 2 CTAs of 4 sublanes an SM).  Above
+// 16 features one wide instantiation (kF = kWideF = 64) reads each tile
+// once for up to 64: on a pack that is mostly padding, 16 features a
+// launch read the stream once per 16 at about 1.2 TB/s (the products GCN
+// pack, 13.2 GB at fill 7.65%: 10.7 ms a kF = 16 launch), and more bytes
+// in flight were meant to lift that.  On an H100 the wide launch takes
+// 37.75 ms at F = 64 against 42.93 for four kF = 16 launches, bit-equal,
+// and 2 to 10 tiles ahead time the same (37.6-38.0 ms; 4 KB a tile, 1 CTA
+// an SM): past 16 features the real slots' gathers, 256 B of XT a slot at
+// F = 64 behind each tile's barrier, set the time (about 0.47 ms a
+// feature), not the stream (3.9 ms at 3.35 TB/s).  Its 64 accumulators
+// take 112-114 registers, so __launch_bounds__ keeps kWideFThreads (512)
+// an SM; the ring stays 8 tiles ahead (37 KB, static).
 #include <cstdint>
 #include <type_traits>
 
@@ -113,15 +127,23 @@ namespace {
 
 using namespace wavepack;
 
-constexpr int kMaxF = 16;                // features in registers
+constexpr int kMaxF = 16;                // the widest narrow SpMM
 // A CTA owns kR sublanes (kR * 128 threads): kWideRows at kF = 1, whose
 // rows of idx words are then whole 32-byte sectors (int32) or 16-byte
 // copies (idx16), unless that leaves at most 1.5 CTAs an SM (a pack of one
-// row block: 64; of three: 192); kNarrowRows then, and always for SpMM, whose
-// accumulators need the registers.  The ring holds kStepsAhead + 1 tiles.
+// row block: 64; of three: 192); kNarrowRows then, and for SpMM up to kMaxF
+// features, whose accumulators need the registers.  The ring holds
+// kStepsAhead + 1 tiles.
 constexpr int kWideRows = 8;
 constexpr int kNarrowRows = 4;
 constexpr int kStepsAhead = 2;
+// The wide SpMM: kWideF features a launch in CTAs of kWideFRows sublanes
+// with kWideFAhead tiles in flight, kWideFThreads threads an SM (128
+// registers a thread for the accumulators).
+constexpr int kWideF = 64;
+constexpr int kWideFRows = 4;
+constexpr int kWideFAhead = 8;
+constexpr int kWideFThreads = 512;
 constexpr int kMaxK = 8;                 // classes_per_group (config.py)
 
 // the algebra of kernel template argument kSr; the first three are the
@@ -277,17 +299,18 @@ __device__ __forceinline__ void issue(Stage<ValT, IdxT, kR>& st,
 }
 
 // kF accumulators a thread, of which the first p.F are written (p.F == 1
-// when kF == 1, and the SpMV code is then free of the feature loop).
-// ValT is the stored value word: uint32_t (fp32 or Q8.24) or uint16_t
-// (bf16).
+// when kF == 1, and the SpMV code is then free of the feature loop), and
+// kAhead tiles in flight.  ValT is the stored value word: uint32_t (fp32
+// or Q8.24) or uint16_t (bf16).
 template <typename ValT, typename IdxT, bool kSteal, bool kBlockMajor,
-          int kF, int kSr, bool kMasked, int kR>
-__global__ void __launch_bounds__(kR * kLanes,
-                                  kF == 1 ? 2048 / (kR * kLanes) : 2)
+          int kF, int kSr, bool kMasked, int kR, int kAhead = kStepsAhead>
+__global__ void __launch_bounds__(
+    kR * kLanes, kF == 1       ? 2048 / (kR * kLanes)
+                 : kF <= kMaxF ? 2
+                               : kWideFThreads / (kR * kLanes))
 wavepack_kernel(const Params p) {
   using A = Acc<kSr>;
-  constexpr int kAhead = kStepsAhead;          // tiles in flight
-  constexpr int kRing = kStepsAhead + 1;
+  constexpr int kRing = kAhead + 1;
   using St = Stage<ValT, IdxT, kR>;
   __shared__ St ring[kRing];
   const A* __restrict__ xt = static_cast<const A*>(p.xt);
@@ -375,16 +398,17 @@ wavepack_kernel(const Params p) {
 
 using Kernel = void (*)(Params);
 
-// an instantiation and the sublanes a CTA of it owns
+// an instantiation, the sublanes a CTA of it owns and its tiles in flight
 struct Choice {
   Kernel k;
   int rows;
+  int ahead = kStepsAhead;
 };
 
 template <typename ValT, typename IdxT, bool kSt, bool kBm, int kF, int kSr,
-          bool kMasked, int kR>
+          bool kMasked, int kR, int kAhead = kStepsAhead>
 Kernel fn() {
-  return wavepack_kernel<ValT, IdxT, kSt, kBm, kF, kSr, kMasked, kR>;
+  return wavepack_kernel<ValT, IdxT, kSt, kBm, kF, kSr, kMasked, kR, kAhead>;
 }
 
 // The instantiation for the run-time semiring, value type and pack flags,
@@ -393,7 +417,7 @@ Kernel fn() {
 // steal_mantissa, a bf16 or Q8.24 stream with steal_mantissa or another
 // semiring than plus_times, an unknown semiring or value type; and for
 // Q8.24 SpMM or masked SpMV, which the JAX package refuses too.
-template <int kF, bool kMasked, int kR>
+template <int kF, bool kMasked, int kR, int kAhead = kStepsAhead>
 Kernel select(int semiring, int vtype, bool idx16, bool steal,
               bool block_major) {
   if (vtype == kBf16 || vtype == kQ824) {
@@ -401,9 +425,9 @@ Kernel select(int semiring, int vtype, bool idx16, bool steal,
     if (vtype == kBf16) {
       return block_major
                  ? fn<uint16_t, int32_t, false, true, kF, kPlusTimes,
-                      kMasked, kR>()
+                      kMasked, kR, kAhead>()
                  : fn<uint16_t, int32_t, false, false, kF, kPlusTimes,
-                      kMasked, kR>();
+                      kMasked, kR, kAhead>();
     }
     if constexpr (kF == 1 && !kMasked) {
       return block_major ? fn<uint32_t, int32_t, false, true, 1, kFixed,
@@ -420,12 +444,12 @@ Kernel select(int semiring, int vtype, bool idx16, bool steal,
     constexpr bool kSt = decltype(st_)::value;
     constexpr bool kBm = decltype(bm)::value;
     if (semiring == kPlusTimes) {
-      k = fn<uint32_t, Idx, kSt, kBm, kF, kPlusTimes, kMasked, kR>();
+      k = fn<uint32_t, Idx, kSt, kBm, kF, kPlusTimes, kMasked, kR, kAhead>();
     } else if (semiring == kMaxTimes) {
-      k = fn<uint32_t, Idx, kSt, kBm, kF, kMaxTimes, kMasked, kR>();
+      k = fn<uint32_t, Idx, kSt, kBm, kF, kMaxTimes, kMasked, kR, kAhead>();
     } else if constexpr (!kSt) {
       if (semiring == kMinPlus) {
-        k = fn<uint32_t, Idx, kSt, kBm, kF, kMinPlus, kMasked, kR>();
+        k = fn<uint32_t, Idx, kSt, kBm, kF, kMinPlus, kMasked, kR, kAhead>();
       }
     }
   });
@@ -452,8 +476,9 @@ int sm_count() {
 }
 
 // The instantiation of entry point `which` (kSpmv, kMaskedSpmv or kSpmm,
-// the latter at kF = 4, 8 or 16 for Fp features) for a grid of n_blocks
-// row blocks of S sublanes, or a null kernel.
+// the latter at kF = 4, 8 or 16 for Fp features up to kMaxF, at kWideF
+// above) for a grid of n_blocks row blocks of S sublanes, or a null
+// kernel.
 Choice pick(int which, int semiring, int vtype, bool idx16, bool steal,
             bool block_major, int Fp, int n_blocks, int S) {
   if (which == kSpmv || which == kMaskedSpmv) {
@@ -472,8 +497,13 @@ Choice pick(int which, int semiring, int vtype, bool idx16, bool steal,
                                               block_major),
             kNarrowRows};
   }
-  if (which != kSpmm || vtype == kQ824 || Fp < 1 || Fp > kMaxF) {
+  if (which != kSpmm || vtype == kQ824 || Fp < 1 || Fp > kWideF) {
     return {nullptr, 0};
+  }
+  if (Fp > kMaxF) {
+    return {select<kWideF, false, kWideFRows, kWideFAhead>(
+                semiring, vtype, idx16, steal, block_major),
+            kWideFRows, kWideFAhead};
   }
   const Kernel k =
       Fp <= 4 ? select<4, false, kNarrowRows>(semiring, vtype, idx16, steal,
@@ -565,8 +595,9 @@ extern "C" int wavepack_spmv_masked_launch(
                 p, static_cast<cudaStream_t>(stream));
 }
 
-// SpMM: xt (n_parts, CT, 128, 128, Fp), 16-byte aligned, Fp in {4, 8, 12,
-// 16}; out (F, n_blocks*S, 128), 1 <= F <= Fp (fp32 and bf16 streams).
+// SpMM: xt (n_parts, CT, 128, 128, Fp), 16-byte aligned, Fp a multiple of
+// 4 up to kWideF; out (F, n_blocks*S, 128), 1 <= F <= Fp (fp32 and bf16
+// streams).
 extern "C" int wavepack_spmm_launch(const void* vals, const void* idxT,
                                     int idx16, int steal, int block_major,
                                     int semiring, int vtype,
@@ -615,7 +646,7 @@ extern "C" int wavepack_kernel_info(int which, int semiring, int vtype,
   info[2] = 0;
   info[3] = static_cast<int>(a.localSizeBytes);
   info[4] = ctas;
-  info[5] = kStepsAhead + 1;
+  info[5] = c.ahead + 1;
   info[6] = c.rows * kLanes;
   return 0;
 }

@@ -15,6 +15,8 @@ through its ``launch_*`` function, so a run can show that its main path
 went through the kernel: ``launches`` (the wavepack SpMV),
 ``gradstream_launches``, ``spmm_launches``, ``masked_launches``,
 ``bcsr_launches`` and ``fold_launches`` (the renamed -> natural fold).
+``spmm_wide_launches`` counts, among ``spmm_launches``, those of the wide
+SpMM instantiation (an xt of more than ``SPMM_NARROW_F`` features).
 """
 from __future__ import annotations
 
@@ -73,12 +75,17 @@ INFO_FIELDS = ("registers", "static_smem", "dynamic_smem", "local_bytes",
 SEMIRINGS = {"plus_times": 0, "min_plus": 1, "max_times": 2}
 FOLD_ALGEBRAS = dict(SEMIRINGS, fixed=3)
 VTYPES = {"fp32": 0, "bf16": 1, "fixed": 2}
+# the widest xt the SpMM's kF = 4, 8 and 16 instantiations take; a wider
+# one launches the wide instantiation (kMaxF and pick() in
+# csrc/wavepack_spmv.cu)
+SPMM_NARROW_F = 16
 
 _lock = threading.Lock()
 _fns = None
 launches = 0
 gradstream_launches = 0
 spmm_launches = 0
+spmm_wide_launches = 0
 masked_launches = 0
 bcsr_launches = 0
 fold_launches = 0
@@ -280,7 +287,7 @@ def launch_wavepack_spmm(vals, idxT, tile_part, cmap, run_start, run_end,
     """Launch the SpMM kernel on the current stream (checked by
     ops/spmv.py:wavepack_spmm): xt is (n_parts, CT, 128, 128, Fp), out
     (F, n_blocks*S, 128) with F <= Fp."""
-    global spmm_launches
+    global spmm_launches, spmm_wide_launches
     rc = load()["wavepack_spmm"](
         vals.data_ptr(), idxT.data_ptr(), int(idxT.dtype == torch.int16),
         int(steal), int(block_major), SEMIRINGS[semiring], VTYPES[dtype],
@@ -290,6 +297,8 @@ def launch_wavepack_spmm(vals, idxT, tile_part, cmap, run_start, run_end,
         out.shape[0], xt.shape[4], _stream(vals))
     _check("wavepack_spmm", rc)
     spmm_launches += 1
+    if xt.shape[4] > SPMM_NARROW_F:
+        spmm_wide_launches += 1
 
 
 def launch_bcsr(blocks, brow_ptr, bcol, x, out) -> None:

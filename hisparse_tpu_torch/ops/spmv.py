@@ -31,8 +31,8 @@ comes out at the identity, as the JAX resident init and paged fill leave
 it.  min and max propagate a NaN, as ``jnp.minimum`` / ``torch.minimum``
 do.
 
-SpMM runs the same steps for up to 16 feature columns at a time
-(``build_xt_multi``, whose XT keeps a slot's features innermost, and
+SpMM runs the same steps for up to ``SPMM_MAX_F`` feature columns at a
+time (``build_xt_multi``, whose XT keeps a slot's features innermost, and
 ``wavepack_spmm`` / ``spmm_tiles_plain``); its stripe fold writes renamed
 y as (n_renamed, F), features innermost, and the fold reads that layout
 into a contiguous (num_rows, F).  The masked
@@ -71,7 +71,7 @@ from ..formats.wavepack import Wavepack, bank_shift
 from ..utils.tracing import span
 from . import _kernels
 
-SPMM_MAX_F = 16              # features per SpMM kernel launch
+SPMM_MAX_F = 64              # features per SpMM kernel launch
 # slots the plain versions route at once: they walk a long stream in
 # chunks of tiles (the SSSP pokec pack has 680M slots), so that their int64
 # routing offsets stay near a GB
@@ -562,16 +562,15 @@ def wavepack_spmm(vals, idxT, tile_part, cmap, run_start, run_end, xt,
                   cfg: SpmvConfig, F: int | None = None) -> torch.Tensor:
     """The tile stream -> the (F, n_blocks*S, 128) accumulators of the
     first F features of ``xt``, build_xt_multi's (n_parts, CT, 128, 128,
-    Fp) with Fp a multiple of 4 up to ``SPMM_MAX_F`` (F = Fp by default).
+    Fp) with Fp a multiple of 4 up to ``SPMM_MAX_F`` (F = Fp by default);
+    a wider xt raises ``ValueError`` on every device.
 
     On CUDA tensors this launches ``csrc/wavepack_spmv.cu`` (the SpMV
-    kernel's body with F accumulators); on CPU tensors it runs
+    kernel's body with F accumulators: kF = 4, 8 or 16 up to 16 features,
+    the wide instantiation, kF = 64, above); on CPU tensors it runs
     :func:`spmm_tiles_plain`.  The operand contract is
     :func:`wavepack_spmv`'s; Q8.24 packs raise ``ValueError``."""
     check_float(cfg, "matmul")
-    if _device_of("wavepack_spmm", vals) == "cpu":
-        return spmm_tiles_plain(vals, idxT, tile_part, cmap, run_start,
-                                run_end, xt, cfg, F)
     Fp = xt.shape[-1]
     F = Fp if F is None else F
     if run_start.dim() != 1 or xt.dim() != 5 or Fp % 4 or not (
@@ -579,6 +578,9 @@ def wavepack_spmm(vals, idxT, tile_part, cmap, run_start, run_end, xt,
         raise ValueError("wavepack_spmm: one run per block and an xt of "
                          "(n_parts, CT, 128, 128, Fp), Fp a multiple of 4, "
                          f"1 <= F <= Fp <= {SPMM_MAX_F}")
+    if _device_of("wavepack_spmm", vals) == "cpu":
+        return spmm_tiles_plain(vals, idxT, tile_part, cmap, run_start,
+                                run_end, xt, cfg, F)
     _check_operands("wavepack_spmm", vals, _stream_checks(
         vals, idxT, tile_part, cmap, cfg) + _run_checks(run_start, run_end)
         + [(xt, torch.float32, (xt.shape[0], cfg.total_blocks, 128, 128,

@@ -211,7 +211,8 @@ def test_kernel_matches_plain_on_arbitrary_words(case, cuda_device):
 def test_gradstream_and_spmm_match_plain_on_cuda(fam, cuda_device):
     """The gradient-stream kernel bit for bit and the SpMM kernel within
     1e-6 of their plain versions on the same CUDA operands, each launch
-    counted once; SpMM at F in {1, 5, 16}, each feature equal to the
+    counted once; SpMM at F in {1, 5, 16}, and through the wide
+    instantiation at F in WIDE_FS bit for bit, each feature equal to the
     SpMV kernel's y of its column."""
     m, wp, x = family_case(fam)
     op = SpmvOperator(wp, device=cuda_device, permute_x=False)
@@ -230,19 +231,50 @@ def test_gradstream_and_spmm_match_plain_on_cuda(fam, cuda_device):
     assert _kernels.gradstream_launches == before + 1
     torch.testing.assert_close(out, gradstream_tiles_plain(*args), rtol=0,
                                atol=0)
-    for F in (1, 5, SPMM_MAX_F):
+    for F in (1, 5, 16) + WIDE_FS:
         X = torch.from_numpy(rng.standard_normal(
             (wp.num_cols, F)).astype(np.float32)).to(cuda_device)
         sargs = (op.vals, op.idxT, op.tile_part, op.class_map, op.run_start,
                  op.run_end, build_xt_multi(X, cfg, wp.n_parts), cfg)
         before = _kernels.spmm_launches
+        wide = _kernels.spmm_wide_launches
         acc = wavepack_spmm(*sargs, F=F)
         torch.cuda.synchronize()
         assert _kernels.spmm_launches == before + 1
+        assert _kernels.spmm_wide_launches == wide + (F > 16)
         assert acc.shape == (F, wp.n_blocks * S, 128)
-        assert _err(acc, spmm_tiles_plain(*sargs, F=F)) <= 1e-6
+        if F in WIDE_FS:
+            _exact(acc, spmm_tiles_plain(*sargs, F=F))
+        else:
+            assert _err(acc, spmm_tiles_plain(*sargs, F=F)) <= 1e-6
         y_ren = op.matmul(X, renamed=True)
         assert _err(y_ren[F - 1], op(X[:, F - 1], renamed=True)) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fam", FP32_FAMILIES + (MULTIBLOCK_FAMILY,),
+                         ids=lambda f: f[0])
+def test_matmul_wide_equals_narrow_chunks_on_cuda(fam, cuda_device):
+    """matmul at F = 100 (launches of 64 and 36 features, the wide
+    instantiation) bit for bit the same features taken 16 at a time
+    (kF = 16), in natural and renamed order; the wide launches counted."""
+    m, wp, x = family_case(fam)
+    op = SpmvOperator(wp, device=cuda_device)
+    X = torch.from_numpy(np.random.default_rng(31).standard_normal(
+        (wp.num_cols, 100)).astype(np.float32)).to(cuda_device)
+    before = _kernels.spmm_launches
+    wide = _kernels.spmm_wide_launches
+    Y = op.matmul(X)
+    torch.cuda.synchronize()
+    assert _kernels.spmm_launches - before == -(-100 // SPMM_MAX_F)
+    assert _kernels.spmm_wide_launches - wide == -(-100 // SPMM_MAX_F)
+    wide = _kernels.spmm_wide_launches
+    for renamed, dim, got in ((False, 1, Y),
+                              (True, 0, op.matmul(X, renamed=True))):
+        want = torch.cat([op.matmul(X[:, f0:f0 + 16], renamed=renamed)
+                          for f0 in range(0, 100, 16)], dim=dim)
+        _exact(got, want)
+    assert _kernels.spmm_wide_launches - wide == -(-100 // SPMM_MAX_F)
 
 
 @pytest.mark.cuda
@@ -308,6 +340,11 @@ def test_profile_breakdown_sees_the_kernel(cuda_device):
     assert 0.0 < prof["busy_us"]
     assert 0.0 <= prof["idle_share"] < 1.0
     assert prof["ops"] == sorted(prof["ops"], reverse=True)
+
+
+# the feature counts at which the wide SpMM instantiation is held bit for
+# bit against its plain version
+WIDE_FS = (20, 36, 48, 64)
 
 
 def _exact(a, b):
@@ -560,11 +597,12 @@ ALGEBRA_CASES = {"plus_times": "bm-k2-steal-tc-idx16",
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("F", [1, 3, 5, 8, 16])
+@pytest.mark.parametrize("F", [1, 3, 5, 8, 16, 20, 36, 48, 64])
 @pytest.mark.parametrize("alg", list(ALGEBRA_CASES))
 def test_spmm_feature_counts_bit_equal(alg, F, cuda_device):
-    """The SpMM kernel at F features (Fp = 4, 8 or 16 in the XT) bit for
-    bit against its plain version on a stream of arbitrary idx words, each
+    """The SpMM kernel at F features (Fp = 4, 8 or 16 in the XT, or up to
+    64 through the wide instantiation) bit for bit against its plain
+    version on a stream of arbitrary idx words, each
     feature equal to the SpMV kernel on its column's build_xt, the empty
     block at the identity."""
     cfg = _algebra_cfg(alg, ALGEBRA_CASES[alg])
@@ -594,9 +632,10 @@ def test_spmm_feature_counts_bit_equal(alg, F, cuda_device):
 @pytest.mark.parametrize("case", ["chain", "bm-k2-steal-tc-idx16"])
 def test_pipeline_short_and_ragged_runs(case, cuda_device):
     """Runs of 0, 1 and 2 tiles (shorter than the ring's depth), of 4, and
-    of 7, 3 and 5 (not multiples of it), through the SpMV, SpMM (F = 5)
-    and masked kernels, bit for bit against their plain versions; the
-    masked selection skips tiles inside runs and whole runs."""
+    of 7, 3 and 5 (not multiples of it), through the SpMV, SpMM (F = 5,
+    and F = 36 through the wide instantiation) and masked kernels, bit
+    for bit against their plain versions; the masked selection skips
+    tiles inside runs and whole runs."""
     from hisparse_tpu_torch.ops.spmv import block_runs
     runs = (0, 1, 2, 7, 3, 4, 0, 5)
     cfg = _algebra_cfg("plus_times", case)
@@ -606,9 +645,11 @@ def test_pipeline_short_and_ragged_runs(case, cuda_device):
              np.float32)
     args = (v, idx, part, cmap, start, end, xt, cfg)
     _exact(wavepack_spmv(*args), spmv_tiles_plain(*args))
-    X = dev(rng.standard_normal((2 * cfg.vb_cols, 5)), np.float32)
-    sargs = (v, idx, part, cmap, start, end, build_xt_multi(X, cfg, 2), cfg)
-    _exact(wavepack_spmm(*sargs, F=5), spmm_tiles_plain(*sargs, F=5))
+    for F in (5, 36):
+        X = dev(rng.standard_normal((2 * cfg.vb_cols, F)), np.float32)
+        sargs = (v, idx, part, cmap, start, end, build_xt_multi(X, cfg, 2),
+                 cfg)
+        _exact(wavepack_spmm(*sargs, F=F), spmm_tiles_plain(*sargs, F=F))
     # gaps inside runs; block 2 (tiles 1-2) and block 5 (13-16) unselected
     sel = np.array([0, 3, 5, 6, 9, 11, 12, 17, 19, 21], np.int32)
     s_, e_ = block_runs(block.cpu().numpy()[sel], len(runs))
@@ -624,7 +665,8 @@ def test_kernel_info_keeps_occupancy(cuda_device):
     """Every SpMV and masked instantiation, in both CTA shapes (narrow for
     a pack of one row block, wide for a pack of many), keeps the SM's
     2,048 threads resident without spilling, and no SpMM instantiation
-    spills; each runs a ring of at least 3 stages."""
+    spills; each runs a ring of at least 3 stages, the wide SpMM's at
+    least 512 threads an SM."""
     kinds = [("plus_times", "fp32"), ("max_times", "fp32"),
              ("min_plus", "fp32"), ("plus_times", "bf16"),
              ("plus_times", "fixed")]
@@ -639,7 +681,8 @@ def test_kernel_info_keeps_occupancy(cuda_device):
                 ("wavepack_spmv", 1, 1), ("wavepack_spmv", 1, 64),
                 ("wavepack_spmv_masked", 1, 1),
                 ("wavepack_spmv_masked", 1, 64), ("wavepack_spmm", 4, 1),
-                ("wavepack_spmm", 8, 1), ("wavepack_spmm", 16, 1)):
+                ("wavepack_spmm", 8, 1), ("wavepack_spmm", 16, 1),
+                ("wavepack_spmm", SPMM_MAX_F, 1)):
             if dtype == "fixed" and which != "wavepack_spmv":
                 continue
             info = _kernels.kernel_info(which, semiring=sr, dtype=dtype,
@@ -652,8 +695,11 @@ def test_kernel_info_keeps_occupancy(cuda_device):
                 assert info["ctas_per_sm"] * info["threads"] == 2048, (
                     which, sr, dtype, info)
                 assert info["threads"] == (512 if n_blocks == 1 else 1024)
+            if Fp > 16:
+                assert info["ctas_per_sm"] * info["threads"] >= 512, (
+                    which, sr, dtype, info)
             n += 1
-    assert n == 116
+    assert n == 132
 
 
 @pytest.mark.cuda

@@ -228,8 +228,12 @@ def test_spans_and_launch_counters(sym, monkeypatch):
         # trace puts its kernels down to the span (bench_h100/spans.py)
         assert len(inner("_SpmmTFn")) == 1
     assert "hisparse.gcn.agg" in evs
-    # forward at F = 20, 40, 7: 2 + 3 + 1 launches; backward at 40, 7
-    assert (gcn.agg.launches_fwd, gcn.agg.launches_bwd) == (6, 4)
+    # a launch a chunk of up to SPMM_MAX_F features: forward at F = 20,
+    # 40, 7, backward at 40, 7
+    def launches(widths):
+        return sum(-(-f // spmv.SPMM_MAX_F) for f in widths)
+    assert (gcn.agg.launches_fwd, gcn.agg.launches_bwd) == (
+        launches([20, 40, 7]), launches([40, 7]))
 
 
 def test_double_backward_runs_through_both_packs(sym, monkeypatch):

@@ -11,8 +11,9 @@ max|d| / max(max|ref|, 1):
     only the order of fp32 sums may differ (hub-split recombine, stripe
     fold), bf16 values included (each widened exactly);
   * bit-equal, within the port, between a feature of the SpMM and the
-    SpMV of that column, and between chunkings of the features: each
-    feature sums its terms in stream order.
+    SpMV of that column, and between chunkings of the features (up to
+    ``SPMM_MAX_F`` a launch against 16, the narrow instantiations' width):
+    each feature sums its terms in stream order.
 """
 import dataclasses
 
@@ -47,6 +48,17 @@ CASES = {
                   {"col_order": "degree"}, "auto"),
     "bf16": (BF16, ("powerlaw_csr", (300, 300, 6), 3), 5, 4, {}, "auto"),
 }
+
+
+@pytest.fixture(autouse=True)
+def _one_host_thread():
+    """The plain versions run many small torch ops, whose thread pool
+    stalls when the test workers oversubscribe the host's cores: one
+    thread here."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _err(a, b):
@@ -99,6 +111,41 @@ def test_spmm_chunking_is_bit_exact():
     for f0, f1 in ((0, 3), (3, SPMM_MAX_F), (SPMM_MAX_F, F)):
         np.testing.assert_array_equal(
             Y[f0:f1].numpy(), op.matmul(X[:, f0:f1], renamed=True).numpy())
+
+
+@pytest.mark.parametrize("F", [17, 36, 47, 64, 65, 100, 256])
+@pytest.mark.parametrize("name", ["bm-steal", "chain"])
+def test_matmul_wide_chunks_equal_narrow_chunks(name, F):
+    """matmul at F features (chunks of up to SPMM_MAX_F a launch) bit for
+    bit the same features taken 16 at a time."""
+    _, _, op, _ = _case(name)
+    X = torch.from_numpy(np.random.default_rng(F).standard_normal(
+        (op.wp.num_cols, F)).astype(np.float32))
+    n = _kernels.SPMM_NARROW_F
+    Y = op.matmul(X, renamed=True)
+    assert Y.shape[0] == F
+    want = torch.cat([op.matmul(X[:, f0:f0 + n], renamed=True)
+                      for f0 in range(0, F, n)])
+    np.testing.assert_array_equal(Y.numpy(), want.numpy())
+
+
+def test_spmm_wrapper_takes_up_to_max_f():
+    """wavepack_spmm takes an xt of up to SPMM_MAX_F features, each equal
+    to the plain version's, and raises ValueError for a wider one."""
+    _, _, op, _ = _case("chain")
+    X = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        (op.wp.num_cols, SPMM_MAX_F + 4)).astype(np.float32))
+    args = (op.vals, op.idxT, op.tile_part, op.class_map, op.run_start,
+            op.run_end)
+    xt = build_xt_multi(X[:, :SPMM_MAX_F], op.cfg, op.wp.n_parts)
+    acc = wavepack_spmm(*args, xt, op.cfg)
+    assert acc.shape == (SPMM_MAX_F, op.wp.n_blocks * op.cfg.sublanes, 128)
+    torch.testing.assert_close(acc, spmm_tiles_plain(*args, xt, op.cfg),
+                               rtol=0, atol=0)
+    wide = build_xt_multi(X, op.cfg, op.wp.n_parts)
+    for F in (None, 1):
+        with pytest.raises(ValueError, match=f"<= {SPMM_MAX_F}"):
+            wavepack_spmm(*args, wide, op.cfg, F=F)
 
 
 def test_spmm_wrapper_on_cpu():

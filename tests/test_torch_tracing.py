@@ -17,6 +17,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import hisparse_tpu_torch as hp
 from hisparse_tpu_torch.models import apps
+from hisparse_tpu_torch.ops.spmv import SPMM_MAX_F
 from hisparse_tpu_torch.utils import tracing
 
 CFG = dict(sublanes=128, bank_blocks=1, stripes=128)
@@ -118,9 +119,11 @@ def test_forward_span_tree(op):
 
 
 def test_matmul_span_tree_folds_each_chunk(op):
-    """F = 20 streams in two chunks (16 + 4): an x span and a stripe fold
-    each, the first x span also holding the column gather."""
-    _, roots = _profiled(_calls(op, None)["matmul"])
+    """F = SPMM_MAX_F + 4 streams in two chunks (SPMM_MAX_F + 4): an x span
+    and a stripe fold each, the first x span also holding the column
+    gather."""
+    X = torch.rand(op.wp.num_cols, SPMM_MAX_F + 4)
+    _, roots = _profiled(lambda: op.matmul(X))
     assert [r.name for r in roots] == ["hisparse.matmul"]
     assert roots[0].names() == ["hisparse.x", "hisparse.stripe_fold"] * 2
     assert roots[0].count() <= MAX_SPANS_A_CALL
